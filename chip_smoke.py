@@ -1,0 +1,473 @@
+#!/usr/bin/env python
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Three phases; any failure exits non-zero.
+
+1. Device and build: the card's name and power limit (nvidia-smi), the
+   kernel build (nvcc for sm_90a) and ptxas's register / shared-memory
+   report.
+2. Kernel parity at the main path's shapes: the shoes mesh, 8 frames, a
+   256² crop and caps counted as ``bench.py`` counts them.  Each kernel is
+   held against its plain PyTorch version on the same inputs and both are
+   timed with CUDA events; the whole fused raster (forward and d(verts))
+   is also held against the plain versions on the CPU.
+3. The main path: ``refine_poses`` in fine mode, random-weight ViT-B/14 at
+   518², bf16, 8 frames, 10 steps; the kernels' launch counts must grow by
+   exactly one per step each.  Then the same entry point on a small scene,
+   on the card and on the CPU (plain versions), must agree.
+
+Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``.  Without a CUDA device it exits 1 and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+CROP = 256
+FRAMES = 8
+STEPS = 10  # bench.py:29
+REFINE_STEPS_FULL = 100
+TILE = 16
+SIGMA = 0.25
+SHOES = "assets/shoes/1229a2e6e97e_A_basketball_shoes_.obj"
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): f32 outside
+# the tensor cores (an FMA counts as 2), and HBM3.  Both kernels work in f32.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Floating-point operations per (pixel, slot) pair that the function needs,
+# counted from csrc/raster_fused.cu: an FMA as 2; add, sub, mul, div,
+# min/max, compare, select, sqrt, exp, log1p each as 1.  Terms of the face
+# alone (area, its guards, edge vectors, segment denominators, visibility)
+# are left out: they could be computed once per slot.  Shared geometry 71
+# (three barycentrics 3 x 6, inside test 5, sign 1, three point-segment
+# distances 3 x 15, their min 2); K1 adds 19 (logit 4, softplus and its sum
+# 6, depth 5, depth test 4); K2 adds 29 (logit 4, dfac 4, sigmoid 3,
+# coefficient 3, segment choice 2, endpoint sums 13).
+OPS_PER_PAIR = {"K1": 90, "K2": 100}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() over reps launches, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def scene(device):
+    """The bench.py scene: mesh, rotations from a numpy seed, targets
+    rendered by the dense raster, random unit gt features, counted caps."""
+    from dynhor_tpu_torch.ops import rasterize as RZ
+    from dynhor_tpu_torch.ops.rasterize_tiled import max_active_tiles_load, max_tile_load
+    from dynhor_tpu_torch.tracker import refine as RF
+    from dynhor_tpu_torch.utils import geometry as G
+    from dynhor_tpu_torch.utils.objio import load_obj
+
+    md = load_obj(SHOES)
+    verts = G.center_and_normalize_verts(torch.as_tensor(md.verts, device=device))
+    mesh = RF.MeshArrays(
+        verts, torch.as_tensor(md.faces, device=device).long(),
+        torch.as_tensor(md.face_uvs, device=device),
+        torch.as_tensor(md.texture, device=device),
+    )
+    rng = np.random.default_rng(0)
+    rot = G.rotations_from_uniforms(
+        torch.as_tensor(rng.random((3, FRAMES), dtype=np.float32), device=device)
+    )
+    trans = torch.tensor([[0.0, 0.0, 1.75]], device=device).repeat(FRAMES, 1)
+    K = torch.tensor(
+        [[CROP * 1.2, 0, CROP / 2], [0, CROP * 1.2, CROP / 2], [0, 0, 1.0]],
+        device=device,
+    )
+    vp = RZ.project_perspective(verts @ rot + trans[:, None], K)
+    masks = (RZ.rasterize(vp, mesh.faces, (CROP, CROP), face_chunk=64).pix_to_face >= 0).float()
+    margin = 6.0 * SIGMA + 1.0
+    worst = int(max_tile_load(vp, mesh.faces, (CROP, CROP), margin=margin).max())
+    n_act = int(max_active_tiles_load(vp, mesh.faces, (CROP, CROP), margin=margin).max())
+    n_faces = mesh.faces.shape[0]
+    cap = max(256, min(-(-int(worst * 1.5) // 128) * 128, n_faces))
+    t_total = (-(-CROP // TILE)) ** 2
+    act = max(8, min(-(-int(n_act * 1.5) // 8) * 8, t_total))
+    act_cap = act if act < t_total else None
+    return mesh, rot, trans, K, vp, masks, cap, act_cap
+
+
+def phase_build() -> str:
+    from dynhor_tpu_torch import kernels
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.time()
+    log = kernels.build()
+    print(f"[build] nvcc sm_90a: {time.time() - t0:.1f} s", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print(f"[build] {line.strip()}", flush=True)
+    return smi
+
+
+def phase_kernels(dev, sc, card: str) -> list[dict]:
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.ops import raster_fused as RFU
+
+    mesh, _, _, _, vp, _, cap, act_cap = sc
+    rows, counts, tw = RFU.kernel_inputs(
+        vp, mesh.faces, (CROP, CROP), SIGMA, TILE, cap, max_active_tiles=act_cap
+    )
+    pairs = int(counts.sum())
+    b, t_rows, m, _ = rows.shape
+    print(
+        f"[kernels] rows {tuple(rows.shape)} (frames, tile rows, cap {cap}, 16); "
+        f"active-tile cap {act_cap}; sum(counts) = {pairs} face-tile pairs "
+        f"({pairs * TILE * TILE} pixel-slot pairs), max count {int(counts.max())}",
+        flush=True,
+    )
+    args = (TILE, tw, SIGMA)
+
+    # K1 against its plain version.
+    mass, zmin, jbest = kernels.fused_fwd(rows, counts, *args, 1e-2)
+    mass_p, zmin_p, jbest_p = RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2)
+    torch.cuda.synchronize()
+    sil_err = float((torch.exp(-mass) - torch.exp(-mass_p)).abs().max())
+    mass_err = float(((mass - mass_p).abs() / mass_p.abs().clamp_min(1.0)).max())
+    hit = zmin_p < 1.5e38
+    check(bool((hit == (zmin < 1.5e38)).all()), "K1 hit masks differ")
+    z_err = float((zmin - zmin_p)[hit].abs().max()) if bool(hit.any()) else 0.0
+    mism = hit & (jbest != jbest_p)
+    n_mism = int(mism.sum())
+    print(
+        f"[kernels] K1 vs plain: sil max abs err {sil_err:.3g}, mass max rel err "
+        f"{mass_err:.3g}, zbuf max abs err {z_err:.3g} over {int(hit.sum())} hit "
+        f"pixels, pix_to_face mismatches {n_mism}", flush=True,
+    )
+    check(sil_err <= 1e-5, f"K1 silhouette error {sil_err} > 1e-5")
+    check(mass_err <= 1e-4, f"K1 mass relative error {mass_err} > 1e-4")
+    check(z_err <= 1e-5, f"K1 zbuf error {z_err} > 1e-5")
+    check(n_mism == 0, f"K1 pix_to_face differs at {n_mism} pixels")
+    k1_ms = cuda_ms(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2))
+    k1_plain_ms = cuda_ms(lambda: RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2), reps=3)
+
+    # K2 against its plain version, on a fixed random cotangent.
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    g = torch.randn((b, t_rows, TILE * TILE), generator=gen).to(dev)
+    dxy = kernels.sil_bwd(rows, counts, g, *args)
+    dxy_p = RFU.tile_mass_grad_plain(rows, counts, g, *args)
+    torch.cuda.synchronize()
+    scale = float(dxy_p.abs().max())
+    k2_err = float((dxy - dxy_p).abs().max())
+    k2_ok = bool(((dxy - dxy_p).abs() <= 1e-5 * scale + 1e-4 * dxy_p.abs()).all())
+    print(f"[kernels] K2 vs plain: d(xy) max abs err {k2_err:.3g} (max |d(xy)| {scale:.3g})", flush=True)
+    check(k2_ok, "K2 d(xy) outside rtol 1e-4, atol 1e-5 x max")
+    k2_ms = cuda_ms(lambda: kernels.sil_bwd(rows, counts, g, *args))
+    k2_plain_ms = cuda_ms(lambda: RFU.tile_mass_grad_plain(rows, counts, g, *args), reps=3)
+
+    # The whole fused raster, kernels on the card vs plain versions on the
+    # CPU: silhouette, pix_to_face, zbuf and d(verts) of sum(sil * w).
+    w = torch.randn((FRAMES, CROP, CROP), generator=gen)
+
+    def raster(v):
+        v = v.clone().requires_grad_(True)
+        frag, sil, ov = RFU.rasterize_silhouette(
+            v, mesh.faces.to(v.device), (CROP, CROP), SIGMA, TILE, cap,
+            max_active_tiles=act_cap,
+        )
+        (sil * w.to(v.device)).sum().backward()
+        return frag, sil.detach(), ov, v.grad
+
+    frag_k, sil_k, ov_k, gv_k = raster(vp)
+    frag_c, sil_c, ov_c, gv_c = raster(vp.cpu())
+    check(int(ov_k.max()) == 0 and int(ov_c.max()) == 0, "raster overflow at counted caps")
+    s_err = float((sil_k.cpu() - sil_c).abs().max())
+    p2f_same = float((frag_k.pix_to_face.cpu() == frag_c.pix_to_face).float().mean())
+    zb_err = float((frag_k.zbuf.cpu() - frag_c.zbuf).abs().max())
+    gscale = float(gv_c.abs().max())
+    gv_err = float((gv_k.cpu() - gv_c).abs().max())
+    gv_ok = bool(((gv_k.cpu() - gv_c).abs() <= 1e-5 * gscale + 1e-4 * gv_c.abs()).all())
+    print(
+        f"[kernels] fused raster, card vs CPU plain: sil max abs err {s_err:.3g}, "
+        f"pix_to_face agreement {p2f_same:.6f}, zbuf max abs err {zb_err:.3g}, "
+        f"d(verts) max abs err {gv_err:.3g} (max |d(verts)| {gscale:.3g})", flush=True,
+    )
+    check(s_err <= 1e-5 and zb_err <= 1e-5, "fused raster forward differs from the CPU")
+    check(p2f_same == 1.0, "fused raster pix_to_face differs from the CPU")
+    check(gv_ok, "d(verts) outside rtol 1e-4, atol 1e-5 x max")
+
+    n_pix = pairs * TILE * TILE
+    out_bytes_k1 = b * t_rows * TILE * TILE * 12
+    in_bytes = pairs * 64 + b * t_rows * 4
+    rows_out = []
+    for key, name, ms, plain_ms, err, nbytes, replaces in (
+        ("K1", "K1 tile_mass_depth", k1_ms, k1_plain_ms, max(sil_err, z_err),
+         in_bytes + out_bytes_k1, "dynhor_tpu/ops/raster_pallas.py:243 _fused_fwd_kernel"),
+        ("K2", "K2 tile_mass_grad", k2_ms, k2_plain_ms, k2_err,
+         in_bytes + b * t_rows * TILE * TILE * 4 + b * t_rows * m * 24,
+         "dynhor_tpu/ops/raster_pallas.py:262 _sil_bwd_kernel"),
+    ):
+        ops = n_pix * OPS_PER_PAIR[key]
+        t_ops = ops / PEAK_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": "dynhor_tpu_torch/csrc/raster_fused.cu", "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        print(
+            f"[kernels] {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{max(t_ops, t_bytes):.5f} ms ({ops:.3e} ops at {PEAK_FLOPS:.3g}/s, "
+            f"{nbytes} bytes) — {card}",
+            flush=True,
+        )
+    return rows_out
+
+
+def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg) -> None:
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.models import dino as D
+    from dynhor_tpu_torch.tracker import refine as RF
+
+    mesh, rot, trans, K, _, masks, cap, act_cap = sc
+    dparams = D.map_params(
+        D.init_params(dcfg, torch.Generator().manual_seed(0)), lambda a: a.to(dev)
+    )
+    gen = torch.Generator().manual_seed(1)
+    gt = torch.randn((FRAMES, dcfg.feat_size**2, dcfg.embed_dim), generator=gen)
+    gt = (gt / torch.linalg.norm(gt, dim=-1, keepdim=True)).to(dev)
+    targets = RF.FrameTargets(masks, gt, K.expand(FRAMES, 3, 3))
+    cfg = RF.RefineConfig(
+        num_iterations=STEPS, crop_size=CROP, mode="fine",
+        max_faces_per_tile=cap, max_active_tiles=act_cap,
+    )
+    print(f"[main] per-tile face cap {cap}, active-tile cap {act_cap} (counted)", flush=True)
+    warm = RF.refine_poses(
+        mesh, targets, rot, trans, dparams, dcfg,
+        dataclasses.replace(cfg, num_iterations=1), device=dev,
+    )
+    check(bool(torch.isfinite(warm.final_loss).all()), "warm-up loss not finite")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.fused_fwd.launches = 0
+    kernels.sil_bwd.launches = 0
+    t0 = time.time()
+    res = RF.refine_poses(mesh, targets, rot, trans * 1.0001, dparams, dcfg, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"K1": kernels.fused_fwd.launches, "K2": kernels.sil_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(res.rot6d.shape == (FRAMES, 3, 2), "rot6d shape")
+    check(bool(torch.isfinite(res.final_loss).all()), "final loss not finite")
+    check(bool(torch.isfinite(res.rot6d).all() and torch.isfinite(res.translations).all()),
+          "poses not finite")
+    check(res.max_overflow == 0, f"overflow {res.max_overflow} at counted caps")
+    for k, n in launches.items():
+        check(n == STEPS, f"{k} launched {n} times in {STEPS} steps")
+    ms_step = wall / STEPS * 1e3
+    fps = FRAMES / (wall * (REFINE_STEPS_FULL / STEPS))
+    print(
+        f"[main] refine_poses fine, ViT-B/14 518² bf16, {FRAMES} frames, {STEPS} steps: "
+        f"{ms_step:.2f} ms/step, {fps:.4f} frames/s at 100 steps/frame, peak "
+        f"{peak / 2**30:.2f} GiB allocated, launches {launches} — {card}", flush=True,
+    )
+    print(
+        f"[main] final loss {res.final_loss.tolist()}, final IoU {res.final_iou.tolist()}",
+        flush=True,
+    )
+    for row in kernel_rows:
+        row["launches"] = launches[row["name"].split()[0]]
+    step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, card)
+
+
+def step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, card):
+    """Where the fine step's time goes: forward+backward of its three
+    parts timed alone with CUDA events, and the device's busy time per step
+    from a profiler window (kernel time only; idle share against the
+    unprofiled ms/step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynhor_tpu_torch.models import dino as D
+    from dynhor_tpu_torch.ops import rasterize as RZ
+    from dynhor_tpu_torch.ops.raster_fused import rasterize_silhouette
+    from dynhor_tpu_torch.ops.shading import fine_lights, phong_shade, phong_shade_tiles
+    from dynhor_tpu_torch.tracker import refine as RF
+
+    v0 = (mesh.verts @ rot + trans[:, None]).detach()
+    K = targets.K_rois
+
+    def raster(return_compact=False):
+        v = v0.clone().requires_grad_(True)
+        out = rasterize_silhouette(
+            RZ.project_perspective(v, K), mesh.faces, (CROP, CROP), SIGMA, TILE,
+            cfg.max_faces_per_tile, max_active_tiles=cfg.max_active_tiles,
+            return_compact=return_compact,
+        )
+        out[1].sum().backward()
+        return out
+
+    frag, _, _, compact = raster(return_compact=True)
+
+    def shade():
+        v = v0.clone().requires_grad_(True)
+        args = (
+            mesh.faces, v, RZ.compute_vertex_normals(v, mesh.faces), mesh.face_uvs,
+            mesh.texture, fine_lights(device=dev),
+        )
+        if compact is None:  # no compaction at this size: the dense shading
+            rgba = phong_shade(frag._replace(bary=frag.bary.detach().requires_grad_(True)), *args)
+        else:
+            bary = compact.bary.detach().requires_grad_(True)
+            rgba = phong_shade_tiles(compact._replace(bary=bary), (CROP, CROP), TILE, *args)
+        rgba.sum().backward()
+
+    params = D.map_params(dparams, lambda a: a.to(torch.bfloat16))
+    rgb = torch.rand((FRAMES, 3, CROP, CROP), generator=torch.Generator().manual_seed(3)).to(dev)
+
+    def vit():
+        x = rgb.clone().requires_grad_(True)
+        D.forward_tokens_from_crop(params, x, dcfg).float().sum().backward()
+
+    parts = {"ViT f+b": cuda_ms(vit, 5), "raster f+b": cuda_ms(raster, 5),
+             "shading f+b": cuda_ms(shade, 5)}
+    rest = ms_step - sum(parts.values())
+    print(
+        "[breakdown] " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f", rest of the step {rest:.2f} ms, of {ms_step:.2f} ms/step — {card}",
+        flush=True,
+    )
+    steps = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        RF.refine_poses(
+            mesh, targets, rot, trans, dparams, dcfg,
+            dataclasses.replace(cfg, num_iterations=steps), device=dev,
+        )
+    kernels_ = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy = sum(e.self_device_time_total for e in kernels_) / steps / 1e3
+    if busy == 0.0:
+        print("[breakdown] device busy time: not measured (the profiler saw no kernels)")
+        return
+    groups = {"matmul": 0.0, "K1+K2": 0.0, "other kernels": 0.0}
+    for e in kernels_:
+        name = e.key.lower()
+        if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
+            key = "matmul"
+        elif "fused_fwd_kernel" in name or "sil_bwd_kernel" in name:
+            key = "K1+K2"
+        else:
+            key = "other kernels"
+        groups[key] += e.self_device_time_total / steps / 1e3
+    print(
+        f"[breakdown] device busy {busy:.2f} ms/step (profiler, kernels only): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items())
+        + f"; idle share {max(0.0, 1.0 - busy / ms_step):.3f} of the unprofiled "
+        f"{ms_step:.2f} ms/step — {card}", flush=True,
+    )
+    for e in sorted(kernels_, key=lambda e: -e.self_device_time_total)[:8]:
+        print(
+            f"[breakdown]   {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+            f"{e.count // steps:5d} launches/step  {e.key[:90]}", flush=True,
+        )
+
+
+def phase_small_reference(dev) -> None:
+    """refine_poses on a small scene: the card (kernels, f32 ViT without
+    TF32) against the CPU (plain versions), over 3 steps."""
+    from dynhor_tpu_torch.models import dino as D
+    from dynhor_tpu_torch.ops import rasterize as RZ
+    from dynhor_tpu_torch.tracker import refine as RF
+    from dynhor_tpu_torch.utils import geometry as G
+
+    s = 64
+    v = torch.tensor(
+        [[-0.3, -0.2, -0.1], [0.3, -0.2, -0.1], [0.3, 0.2, -0.1], [-0.3, 0.2, -0.1],
+         [-0.3, -0.2, 0.1], [0.3, -0.2, 0.1], [0.3, 0.2, 0.1], [-0.3, 0.2, 0.1]]
+    )
+    f = torch.tensor(
+        [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
+         [3, 2, 6], [3, 6, 7], [1, 5, 6], [1, 6, 2], [0, 3, 7], [0, 7, 4]]
+    )
+    texture = torch.rand((4, 4, 3), generator=torch.Generator().manual_seed(2))
+    mesh = RF.MeshArrays(v, f, torch.full((12, 3, 2), 0.5), texture)
+    R = G.rotations_from_uniforms(torch.tensor([[0.1, 0.7], [0.4, 0.2], [0.8, 0.5]]))
+    t = torch.tensor([[0.0, 0.0, 2.0], [0.05, -0.03, 2.1]])
+    K = torch.tensor([[float(s), 0, s / 2], [0, float(s), s / 2], [0, 0, 1.0]])
+    vp = RZ.project_perspective(v @ R + t[:, None], K)
+    masks = (RZ.rasterize(vp, f, (s, s), face_chunk=12).pix_to_face >= 0).float()
+    dcfg = D.DinoConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, pos_grid=4,
+                        smaller_edge_size=32)
+    params = D.init_params(dcfg, torch.Generator().manual_seed(3))
+    gt = torch.randn((2, 16, 32), generator=torch.Generator().manual_seed(4))
+    targets = RF.FrameTargets(masks, gt, K.expand(2, 3, 3))
+    cfg = RF.RefineConfig(num_iterations=3, crop_size=s, mode="fine", dino_dtype="float32",
+                          max_active_tiles=8)
+    noise = 0.05 * torch.randn((2, 3, 2), generator=torch.Generator().manual_seed(5))
+    R0 = G.rot6d_to_matrix(G.matrix_to_rot6d(R) + noise)
+    r_dev = RF.refine_poses(mesh, targets, R0, t + 0.03, params, dcfg, cfg, device=dev)
+    r_cpu = RF.refine_poses(mesh, targets, R0, t + 0.03, params, dcfg, cfg, device="cpu")
+    errs = {
+        k: float((a.cpu() - b).abs().max())
+        for k, a, b in zip(("rot6d", "trans", "loss", "iou"), r_dev[:4], r_cpu[:4])
+    }
+    print(f"[small] refine_poses 3 steps, card vs CPU max abs err: {errs}", flush=True)
+    check(all(e <= 1e-4 for e in errs.values()), "card and CPU trajectories differ by > 1e-4")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device (this script measures the card; it never runs the CPU path)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = phase_build()
+    sc = scene(dev)
+    kernel_rows = phase_kernels(dev, sc, smi)
+    from dynhor_tpu_torch.models.dino import DinoConfig
+
+    phase_main(dev, sc, smi, kernel_rows, DinoConfig())
+    phase_small_reference(dev)
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

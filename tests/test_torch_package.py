@@ -1,0 +1,67 @@
+"""The port package stands alone: it imports neither JAX nor the JAX
+package, its entry points default to the card, and its kernel wrappers
+refuse tensors that are not on a CUDA device."""
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dynhor_tpu_torch import kernels
+from dynhor_tpu_torch.tracker import refine as TRF
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["dynhor_tpu"] = None   # as does any import of the JAX package
+import dynhor_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dynhor_tpu_torch.__path__, "dynhor_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [k for k in sys.modules if (k == "jax" or k.startswith(("jax.", "dynhor_tpu.")))
+       and sys.modules[k] is not None]
+assert not bad, bad
+assert len(names) >= 15, names
+print("ok", len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_point_without_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = TRF.MeshArrays(
+        np.zeros((3, 3), np.float32), np.array([[0, 1, 2]]),
+        np.zeros((1, 3, 2), np.float32), np.ones((2, 2, 3), np.float32),
+    )
+    targets = TRF.FrameTargets(
+        np.zeros((1, 32, 32), np.float32), np.zeros((1, 4, 8), np.float32),
+        np.eye(3, dtype=np.float32)[None],
+    )
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TRF.refine_poses(
+            mesh, targets, np.eye(3, dtype=np.float32)[None],
+            np.zeros((1, 3), np.float32), None, None,
+            TRF.RefineConfig(num_iterations=1, crop_size=32, mode="coarse"),
+        )
+
+
+@pytest.mark.parametrize("which", ["fused_fwd", "sil_bwd"])
+def test_kernel_wrappers_refuse_cpu_tensors(which):
+    rows = torch.zeros((1, 1, 128, 16))
+    counts = torch.zeros((1, 1), dtype=torch.int32)
+    before = getattr(kernels, which).launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if which == "fused_fwd":
+            kernels.fused_fwd(rows, counts, 16, 1, 0.25, 1e-2)
+        else:
+            kernels.sil_bwd(rows, counts, torch.zeros((1, 1, 256)), 16, 1, 0.25)
+    assert getattr(kernels, which).launches == before
