@@ -1,10 +1,12 @@
-// Fused tile raster: forward (K1) and silhouette backward (K2) for sm_90a.
+// Tile raster kernels for sm_90a: the fused forward (K1), its silhouette
+// backward (K2) and the depth-only hard raster of the prior views (K3).
 //
 // K1 replaces dynhor_tpu/ops/raster_pallas.py:_fused_fwd_kernel, K2 replaces
-// dynhor_tpu/ops/raster_pallas.py:_sil_bwd_kernel.  Plain PyTorch versions of
-// both live in dynhor_tpu_torch/ops/raster_fused.py (tile_mass_depth_plain,
-// tile_mass_grad_plain); the wrappers in dynhor_tpu_torch/kernels.py launch
-// these kernels for CUDA tensors.
+// dynhor_tpu/ops/raster_pallas.py:_sil_bwd_kernel, K3 replaces
+// dynhor_tpu/ops/raster_pallas.py:_depth_fwd_kernel.  Plain PyTorch versions
+// live in dynhor_tpu_torch/ops/raster_fused.py (tile_mass_depth_plain,
+// tile_mass_grad_plain, tile_depth_plain); the wrappers in
+// dynhor_tpu_torch/kernels.py launch these kernels for CUDA tensors.
 //
 // Layout.  rows: (n_blocks = frames x tile rows, m slots, 16) f32 records
 //   [x0 y0 x1 y1 x2 y2 vis pad | z0 z1 z2 pad x5]; counts: (n_blocks,) i32 —
@@ -24,6 +26,16 @@
 // stops at the tile's true count, so work scales with the scene's load and
 // not with the counted cap.  The frame axis is part of the grid: one launch
 // covers every frame of a step.  K2 needs no atomics and is deterministic.
+//
+// K3 does a quarter of K1's work per pair (about twenty operations: the
+// barycentrics and the inside test; the depth and its test only where the
+// pixel is inside the face) and still reads a 64-byte record per slot and
+// writes 8 bytes per pixel, so operations bound it too, and it runs K1's
+// layout and loop without the mass.  The TPU
+// version's 8 tiles per program and 512-slot chunks with a clamped
+// overlapping last chunk were VMEM blocking; here one block per (view,
+// tile) loops over exactly the tile's count.  The view axis is part of the
+// grid, so one launch renders a whole chunk of prior views.
 //
 // Numerics.  Both work in f32 and are built with -fmad=false: every product
 // is rounded before the following add, as in the plain PyTorch version, so
@@ -57,8 +69,30 @@ __device__ __forceinline__ Seg seg(float ax, float ay, float bx, float by,
   return {t, dx, dy, fmaf(dx, dx, dy * dy)};
 }
 
-// Per (pixel, slot) geometry shared by both kernels, in the plain version's
-// order of operations (ops/raster_fused.py:_pair_geometry).
+// Per (pixel, slot) barycentrics and inside test, shared by all three
+// kernels, in the plain versions' order of operations
+// (ops/raster_fused.py:_barycentric).
+struct Bary {
+  float w0, w1, w2;
+  bool inside, nondegen;
+};
+
+__device__ __forceinline__ Bary barycentric(const float* r, float px, float py) {
+  const float x0 = r[0], y0 = r[1], x1 = r[2], y1 = r[3], x2 = r[4], y2 = r[5];
+  Bary b;
+  const float area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0);
+  const bool degen = fabsf(area) < 1e-12f;
+  const float inv_area = degen ? 0.0f : 1.0f / area;
+  b.w0 = ((x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)) * inv_area;
+  b.w1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) * inv_area;
+  b.w2 = ((x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)) * inv_area;
+  b.nondegen = fabsf(area) > 1e-12f;
+  b.inside = (b.w0 >= 0.0f) && (b.w1 >= 0.0f) && (b.w2 >= 0.0f) && b.nondegen;
+  return b;
+}
+
+// Per (pixel, slot) geometry of K1 and K2, in the plain version's order of
+// operations (ops/raster_fused.py:_pair_geometry).
 struct Pair {
   float w0, w1, w2;
   bool inside, visible;
@@ -69,21 +103,18 @@ struct Pair {
 
 __device__ __forceinline__ Pair pair_geometry(const float* r, float px, float py) {
   const float x0 = r[0], y0 = r[1], x1 = r[2], y1 = r[3], x2 = r[4], y2 = r[5];
+  const Bary b = barycentric(r, px, py);
   Pair q;
-  const float area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0);
-  const bool degen = fabsf(area) < 1e-12f;
-  const float inv_area = degen ? 0.0f : 1.0f / area;
-  q.w0 = ((x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)) * inv_area;
-  q.w1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) * inv_area;
-  q.w2 = ((x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)) * inv_area;
-  const bool nondegen = fabsf(area) > 1e-12f;
-  q.inside = (q.w0 >= 0.0f) && (q.w1 >= 0.0f) && (q.w2 >= 0.0f) && nondegen;
+  q.w0 = b.w0;
+  q.w1 = b.w1;
+  q.w2 = b.w2;
+  q.inside = b.inside;
   q.sign = q.inside ? 1.0f : -1.0f;
   q.s01 = seg(x0, y0, x1, y1, px, py);
   q.s12 = seg(x1, y1, x2, y2, px, py);
   q.s20 = seg(x2, y2, x0, y0, px, py);
   q.d2 = fminf(q.s01.d2, fminf(q.s12.d2, q.s20.d2));
-  q.visible = (r[6] > 0.5f) && nondegen;
+  q.visible = (r[6] > 0.5f) && b.nondegen;
   return q;
 }
 
@@ -198,6 +229,50 @@ __global__ void sil_bwd_kernel(const float* __restrict__ rows,
   }
 }
 
+// K3: forward-only hard raster of the prior views.  One block per (view,
+// tile), one thread per pixel, slot records staged 128 at a time as in K1;
+// per pixel the min depth over covering visible faces with z > znear and
+// its slot (strict <: the first slot wins), no silhouette math.
+__global__ void depth_fwd_kernel(const float* __restrict__ rows,
+                                 const int* __restrict__ counts,
+                                 float* __restrict__ zmin_out,
+                                 int* __restrict__ jbest_out, int t_rows, int m,
+                                 int tile, int tiles_w, float znear) {
+  __shared__ float4 s_rows[kChunk * kRow / 4];
+  const int bt = blockIdx.x;
+  const int t = bt % t_rows;
+  const int p = threadIdx.x;
+  const float px = (static_cast<float>(p % tile) + 0.5f) +
+                   static_cast<float>((t % tiles_w) * tile);
+  const float py = (static_cast<float>(p / tile) + 0.5f) +
+                   static_cast<float>((t / tiles_w) * tile);
+  const int count = counts[bt];
+  const float4* src = reinterpret_cast<const float4*>(rows + static_cast<size_t>(bt) * m * kRow);
+  float zmin = kBigZ;
+  int jbest = 0;
+  for (int base = 0; base < count; base += kChunk) {
+    const int n = min(kChunk, count - base);
+    __syncthreads();  // the previous chunk is fully consumed
+    for (int i = threadIdx.x; i < n * (kRow / 4); i += blockDim.x)
+      s_rows[i] = src[base * (kRow / 4) + i];
+    __syncthreads();
+    const float* r = reinterpret_cast<const float*>(s_rows);
+    for (int j = 0; j < n; ++j, r += kRow) {
+      if (!(r[6] > 0.5f)) continue;  // padding slot, or face behind znear
+      const Bary q = barycentric(r, px, py);
+      if (!q.inside) continue;
+      const float z = q.w0 * r[8] + q.w1 * r[9] + q.w2 * r[10];
+      if (z > znear && z < zmin) {
+        zmin = z;
+        jbest = base + j;
+      }
+    }
+  }
+  const size_t o = static_cast<size_t>(bt) * blockDim.x + p;
+  zmin_out[o] = zmin;
+  jbest_out[o] = jbest;
+}
+
 }  // namespace
 
 extern "C" {
@@ -225,6 +300,18 @@ int dynhor_sil_bwd(const void* rows, const void* counts, const void* g,
       static_cast<const float*>(rows), static_cast<const int*>(counts),
       static_cast<const float*>(g), static_cast<float*>(dxy), t_rows, m, tile,
       tiles_w, sigma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 launch.  Returns cudaGetLastError() after the launch (0 = launched).
+int dynhor_depth_fwd(const void* rows, const void* counts, void* zmin,
+                     void* jbest, int n_blocks, int t_rows, int m, int tile,
+                     int tiles_w, float znear, void* stream) {
+  depth_fwd_kernel<<<n_blocks, tile * tile, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<const int*>(counts),
+      static_cast<float*>(zmin), static_cast<int*>(jbest), t_rows, m, tile,
+      tiles_w, znear);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -84,6 +84,8 @@ def build() -> str:
         lib.dynhor_fused_fwd.restype = i
         lib.dynhor_sil_bwd.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
         lib.dynhor_sil_bwd.restype = i
+        lib.dynhor_depth_fwd.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+        lib.dynhor_depth_fwd.restype = i
         _lib = lib
     return _ptxas_log
 
@@ -153,3 +155,25 @@ def sil_bwd(rows, counts, g, tile, tiles_w, sigma):
 
 
 sil_bwd.launches = 0
+
+
+def depth_fwd(rows, counts, tile, tiles_w, znear):
+    """K3 on the card: see ops/raster_fused.tile_depth_plain."""
+    b, t, m, stream = _launch_args(rows, counts, tile)
+    p = tile * tile
+    zmin = torch.empty((b, t, p), dtype=torch.float32, device=rows.device)
+    jbest = torch.empty((b, t, p), dtype=torch.int32, device=rows.device)
+    if b * t == 0:
+        return zmin, jbest
+    with torch.cuda.device(rows.device):
+        err = _lib.dynhor_depth_fwd(
+            rows.data_ptr(), counts.data_ptr(), zmin.data_ptr(), jbest.data_ptr(),
+            b * t, t, m, tile, tiles_w, znear, stream,
+        )
+    if err:
+        raise RuntimeError(f"depth_fwd kernel launch failed: CUDA error {err}")
+    depth_fwd.launches += 1
+    return zmin, jbest
+
+
+depth_fwd.launches = 0

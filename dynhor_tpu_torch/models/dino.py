@@ -201,7 +201,10 @@ def _fused_resize_factor(small: int, edge: int, patch: int, device: str) -> Tens
     by patch row: row (a, u) is resized pixel a*patch+u over the `small`
     source pixels."""
     w = _bicubic_matrix_ac(small, edge).reshape(edge // patch, patch, small)
-    return torch.as_tensor(w, device=device)
+    # A normal tensor even when first asked for under inference mode (the
+    # prior scoring), since the refine's backward saves it later.
+    with torch.inference_mode(False):
+        return torch.as_tensor(w, device=device)
 
 
 def fused_patch_tokens(

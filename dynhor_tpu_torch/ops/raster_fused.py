@@ -15,6 +15,12 @@ dynhor_tpu_torch/kernels.py):
   * K2 ``tile_mass_grad`` — d(mass)/d(face xy) per slot (replaces
     ``_sil_bwd_kernel``).
 
+``rasterize_depth`` (port of ``rasterize_pallas``) is the forward-only hard
+raster of the prior views, around a third kernel:
+
+  * K3 ``tile_depth`` — min depth and its slot per pixel, no silhouette
+    (replaces ``_depth_fwd_kernel``).
+
 Each has a plain PyTorch version here (``*_plain``).  The dispatchers use
 the plain version only for tensors on the CPU; a CUDA tensor launches the
 kernel or raises.  pix_to_face/zbuf are hard (PyTorch3D blur_radius=0
@@ -33,7 +39,7 @@ import torch
 
 from .. import kernels
 from .rasterize import Fragments, barycentrics_from_rows, pixel_centers
-from .rasterize_tiled import bin_faces_and_inverse
+from .rasterize_tiled import bin_faces, bin_faces_and_inverse
 
 Tensor = torch.Tensor
 
@@ -102,11 +108,12 @@ def _seg(ax, ay, bx, by, px, py):
     return t, dx, dy, _fma(dx, dx, dy * dy)
 
 
-def _pair_geometry(r: Tensor, px: Tensor, py: Tensor):
-    """Per (pixel, slot) barycentrics, inside test and the three
-    point-segment terms.  r: (B, T, 1, C, 16) slot records."""
+def _barycentric(r: Tensor, px: Tensor, py: Tensor):
+    """Per (pixel, slot) barycentrics and inside test, the formulation all
+    three kernels share.  r: (B, T, 1, C, 16) slot records.  Returns
+    ((w0, w1, w2), inside, nondegen)."""
     x0, y0, x1, y1 = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
-    x2, y2, vis = r[..., 4], r[..., 5], r[..., 6]
+    x2, y2 = r[..., 4], r[..., 5]
     area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
     degen = area.abs() < 1e-12
     inv_area = torch.where(degen, 0.0, 1.0 / torch.where(degen, 1.0, area))
@@ -115,13 +122,22 @@ def _pair_geometry(r: Tensor, px: Tensor, py: Tensor):
     w2 = ((x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)) * inv_area
     nondegen = area.abs() > 1e-12
     inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & nondegen
+    return (w0, w1, w2), inside, nondegen
+
+
+def _pair_geometry(r: Tensor, px: Tensor, py: Tensor):
+    """Per (pixel, slot) barycentrics, inside test and the three
+    point-segment terms.  r: (B, T, 1, C, 16) slot records."""
+    x0, y0, x1, y1 = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
+    x2, y2, vis = r[..., 4], r[..., 5], r[..., 6]
+    w, inside, nondegen = _barycentric(r, px, py)
     sign = torch.where(inside, 1.0, -1.0)
     s01 = _seg(x0, y0, x1, y1, px, py)
     s12 = _seg(x1, y1, x2, y2, px, py)
     s20 = _seg(x2, y2, x0, y0, px, py)
     d2 = torch.minimum(s01[3], torch.minimum(s12[3], s20[3]))
     visible = (vis > 0.5) & nondegen
-    return (w0, w1, w2), inside, sign, (s01, s12, s20), d2, visible
+    return w, inside, sign, (s01, s12, s20), d2, visible
 
 
 def _softplus(x: Tensor) -> Tensor:
@@ -216,6 +232,37 @@ def tile_mass_grad_plain(
     return torch.cat(out, dim=2).float()
 
 
+def tile_depth_plain(
+    rows: Tensor, counts: Tensor, tile: int, tiles_w: int, znear: float
+):
+    """Plain version of K3: K1's forward without the mass.  rows
+    (B, T, M, 16) f32, counts (B, T) int32.
+
+    Per pixel, over each tile's first ``count`` slots: the min interpolated
+    depth over covering faces with vis > 0.5 and z > znear, and its slot
+    (strict <: the first slot wins).  Returns zmin (B, T, P) f32 (3e38 where
+    nothing covers the pixel) and jbest (B, T, P) int32 (0 there).
+    """
+    b, t_rows, m, _ = rows.shape
+    p = tile * tile
+    px, py = _tile_pixels(t_rows, tile, tiles_w, rows.device)
+    zmin = rows.new_full((b, t_rows, p), _BIG_Z)
+    jbest = torch.zeros((b, t_rows, p), dtype=torch.int64, device=rows.device)
+    slot = torch.arange(m, device=rows.device)
+    m_used = int(counts.max()) if counts.numel() else 0  # slots past it add nothing
+    for s in range(0, m_used, _PLAIN_CHUNK):
+        r = rows[:, :, None, s : s + _PLAIN_CHUNK]  # (B, T, 1, C, 16)
+        keep = (slot[s : s + _PLAIN_CHUNK] < counts[..., None])[:, :, None, :]
+        (w0, w1, w2), inside, _ = _barycentric(r, px, py)
+        z = w0 * r[..., 8] + w1 * r[..., 9] + w2 * r[..., 10]
+        live = inside & (z > znear) & (r[..., 6] > 0.5) & keep
+        zc, jc = torch.where(live, z, _BIG_Z).min(dim=-1)  # first minimal slot
+        better = zc < zmin
+        zmin = torch.where(better, zc, zmin)
+        jbest = torch.where(better, jc + s, jbest)
+    return zmin, jbest.to(torch.int32)
+
+
 # --------------------------------------------------------------------------
 # Dispatch: plain version for CPU tensors, the kernel for CUDA tensors.
 # --------------------------------------------------------------------------
@@ -233,6 +280,13 @@ def tile_mass_grad(rows, counts, g, tile, tiles_w, sigma):
     if rows.device.type == "cpu":
         return tile_mass_grad_plain(rows, counts, g, tile, tiles_w, sigma)
     return kernels.sil_bwd(rows, counts, g, tile, tiles_w, sigma)
+
+
+def tile_depth(rows, counts, tile, tiles_w, znear):
+    """K3: ``tile_depth_plain`` on the CPU, the CUDA kernel otherwise."""
+    if rows.device.type == "cpu":
+        return tile_depth_plain(rows, counts, tile, tiles_w, znear)
+    return kernels.depth_fwd(rows, counts, tile, tiles_w, znear)
 
 
 def _pack_tile_rows(
@@ -333,6 +387,24 @@ class _TileBins(NamedTuple):
     tiles_w: int
 
 
+def _face_rows(verts_pix: Tensor, faces: Tensor, znear: float) -> Tensor:
+    """Per-FACE records (B, F, 16), built once; each tile slot is then ONE
+    row gather.  xy differentiable; vis = any(z > znear) and z hard
+    (reference semantics)."""
+    fv = verts_pix[:, faces.long()]  # (B, F, 3, 3)
+    z_ok = (fv[..., 2] > znear).any(-1).to(verts_pix.dtype)
+    zero = torch.zeros_like(z_ok)
+    return torch.stack(
+        [
+            fv[..., 0, 0], fv[..., 0, 1], fv[..., 1, 0], fv[..., 1, 1],
+            fv[..., 2, 0], fv[..., 2, 1], z_ok, zero,
+            fv[..., 0, 2].detach(), fv[..., 1, 2].detach(), fv[..., 2, 2].detach(),
+            zero, zero, zero, zero, zero,
+        ],
+        dim=-1,
+    )
+
+
 def _bin_tiles(
     verts_pix, faces, image_size, sigma, tile, max_faces, znear,
     max_tiles_per_face, max_active_tiles,
@@ -349,19 +421,7 @@ def _bin_tiles(
     )
     t_total, m = bins.indices.shape[1:]
     tw = -(-w // tile)
-    # Per-FACE records once (F-sized), then ONE row gather per tile slot.
-    fv = verts_pix[:, faces.long()]  # (B, F, 3, 3)
-    z_ok = (fv[..., 2] > znear).any(-1).to(verts_pix.dtype)
-    zero = torch.zeros_like(z_ok)
-    rows_all = torch.stack(
-        [
-            fv[..., 0, 0], fv[..., 0, 1], fv[..., 1, 0], fv[..., 1, 1],
-            fv[..., 2, 0], fv[..., 2, 1], z_ok, zero,
-            fv[..., 0, 2].detach(), fv[..., 1, 2].detach(), fv[..., 2, 2].detach(),
-            zero, zero, zero, zero, zero,
-        ],
-        dim=-1,
-    )  # xy differentiable; vis/z hard (reference semantics)
+    rows_all = _face_rows(verts_pix, faces, znear)
     overflow = bins.overflow + k_overflow
     if max_active_tiles is None or max_active_tiles >= t_total:
         return _TileBins(
@@ -510,3 +570,67 @@ def rasterize_silhouette(
     if return_compact:
         return frag, sil_img, tb.overflow, compact
     return frag, sil_img, tb.overflow
+
+
+def depth_inputs(
+    verts_pix: Tensor,
+    faces: Tensor,
+    image_size: tuple[int, int],
+    tile: int = 16,
+    max_faces: int = 640,
+    znear: float = 1e-2,
+):
+    """The K3 inputs ``rasterize_depth`` builds: margin-0 bins, the per-face
+    records and the packed tile rows.  Returns (rows (B, T, M, 16), counts
+    (B, T) int32, tiles_w, rows_all (B, F, 16), bins)."""
+    bins = bin_faces(verts_pix, faces, image_size, tile, max_faces, margin=0.0)
+    tw = -(-image_size[1] // tile)
+    rows_all = _face_rows(verts_pix, faces, znear)
+    rows, counts = _pack_tile_rows(rows_all, bins.indices, bins.valid, None, tile, tw)
+    return rows, counts, tw, rows_all, bins
+
+
+def rasterize_depth(
+    verts_pix: Tensor,
+    faces: Tensor,
+    image_size: tuple[int, int],
+    tile: int = 16,
+    max_faces: int = 640,
+    znear: float = 1e-2,
+):
+    """Hard raster only, forward only (the prior views): port of
+    ``raster_pallas.rasterize_pallas`` around K3.
+
+    Margin-0 binning (hard coverage needs no soft-edge band, so the
+    candidate load and the counted cap are smaller than the fused
+    raster's), one K3 launch for all B views.  Tiles past the image edge
+    (sides not a multiple of ``tile``) are rastered and cropped away.
+
+    Args:
+      verts_pix: (B, V, 3) projected (u, v, z).
+      faces: (F, 3).
+
+    Returns (Fragments, overflow (B,) int32): overflow counts face-tile
+    pairs dropped by the per-tile cap; nonzero means corrupted output.
+    """
+    b = verts_pix.shape[0]
+    h, w = image_size
+    rows, counts, tw, rows_all, bins = depth_inputs(
+        verts_pix, faces, image_size, tile, max_faces, znear
+    )
+    zmin, jbest = tile_depth(rows, counts, tile, tw, znear)
+    hit = zmin < _BIG_Z * 0.5
+    fid = torch.gather(bins.indices, 2, jbest.long())
+    fid = torch.where(hit, fid, -1).to(torch.int32)
+    zbuf = torch.where(hit, zmin, -1.0)
+    th = -(-h // tile)
+    pix_to_face = _detile(fid, th, tw, tile, h, w)
+    gx, gy = pixel_centers(h, w, verts_pix.device)
+    bary = barycentrics_from_rows(rows_all, pix_to_face.reshape(b, -1), gx, gy)
+    hit_img = (pix_to_face >= 0).reshape(b, -1, 1)
+    frag = Fragments(
+        pix_to_face=pix_to_face,
+        bary=torch.where(hit_img, bary, 0.0).reshape(b, h, w, 3),
+        zbuf=_detile(zbuf, th, tw, tile, h, w),
+    )
+    return frag, bins.overflow

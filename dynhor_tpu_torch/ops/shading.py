@@ -26,6 +26,22 @@ class Lights(NamedTuple):
     specular: Tensor  # (3,)
 
 
+def default_lights(device, dtype=torch.float32) -> Lights:
+    """The reference's prior-view lighting (render.py:140-146): a point
+    light at the camera center, ambient 0.6, diffuse (0.4, 0.4, 0.5),
+    specular 0.01."""
+
+    def vec(*v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    return Lights(
+        location=vec(0.0, 0.0, 0.0),
+        ambient=vec(0.6, 0.6, 0.6),
+        diffuse=vec(0.4, 0.4, 0.5),
+        specular=vec(0.01, 0.01, 0.01),
+    )
+
+
 def fine_lights(device, dtype=torch.float32) -> Lights:
     """PyTorch3D PointLights defaults — the fine-loss textured render uses
     SoftPhongShader with no explicit lights (pose_initializtion.py:417-419):

@@ -1,6 +1,7 @@
 """Rotation representations and SO(3) sampling (PyTorch).
 
-Port of ``dynhor_tpu/utils/geometry.py`` (the parts the fine refine uses).
+Port of ``dynhor_tpu/utils/geometry.py`` (the parts the fine refine, the
+prior scoring and the gating use).
 Behavioral reference: ObjTracker/utils/geometry.py (rot6d, Zhou CVPR'19),
 ObjTracker/utils/render.py:56-93 (Avro'92 uniform sampling).
 
@@ -41,6 +42,16 @@ def rot6d_to_matrix(rot_6d: Tensor) -> Tensor:
 def matrix_to_rot6d(rotmat: Tensor) -> Tensor:
     """3x3 rotation -> 6D code (first two columns), shape (..., 3, 2)."""
     return rotmat[..., :, :2]
+
+
+def rotation_angle_difference(R1: Tensor, R2: Tensor) -> Tensor:
+    """Geodesic angle between rotation matrices, in degrees: the angle of
+    ``R1 @ R2^T`` (ObjTracker/utils/camera.py:4-9), its cosine clipped to
+    [-1, 1] before the arccos.  Broadcasts over leading dims."""
+    R_rel = torch.einsum("...ij,...kj->...ik", R1, R2)
+    trace = R_rel.diagonal(dim1=-2, dim2=-1).sum(-1)
+    cos_theta = (0.5 * (trace - 1.0)).clamp(-1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos_theta))
 
 
 def rotations_from_uniforms(x: Tensor) -> Tensor:

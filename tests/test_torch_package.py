@@ -54,7 +54,7 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
         )
 
 
-@pytest.mark.parametrize("which", ["fused_fwd", "sil_bwd"])
+@pytest.mark.parametrize("which", ["fused_fwd", "sil_bwd", "depth_fwd"])
 def test_kernel_wrappers_refuse_cpu_tensors(which):
     rows = torch.zeros((1, 1, 128, 16))
     counts = torch.zeros((1, 1), dtype=torch.int32)
@@ -62,6 +62,16 @@ def test_kernel_wrappers_refuse_cpu_tensors(which):
     with pytest.raises(ValueError, match="CUDA tensor"):
         if which == "fused_fwd":
             kernels.fused_fwd(rows, counts, 16, 1, 0.25, 1e-2)
-        else:
+        elif which == "sil_bwd":
             kernels.sil_bwd(rows, counts, torch.zeros((1, 1, 256)), 16, 1, 0.25)
+        else:
+            kernels.depth_fwd(rows, counts, 16, 1, 1e-2)
     assert getattr(kernels, which).launches == before
+
+
+def test_prior_entry_points_without_device_need_a_card(monkeypatch):
+    from dynhor_tpu_torch.tracker import priors as TP
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.frame_gt_features({}, None, np.zeros((1, 3, 8, 8)), np.zeros((1, 8, 8)))
