@@ -8,11 +8,14 @@ pose_initializtion.py:170-184).
 The parameter layout is the JAX package's, so ``params_from_jax`` carries
 its parameters across unchanged: blocks stacked on a leading depth axis,
 kernels as (in, out) matrices applied as ``x @ W + b``, and
-``patch_kernel`` (3*p*p, D) in (c, u, v) order.  Attention is written out
-(matmul, softmax, matmul) as the JAX package's default ``attn_impl="xla"``
-does; its "flash" and "splash" TPU kernels are still to port (ROADMAP.md,
-K5a/K5b).  The path runs without recomputation (the ViT has no weight
-gradients, and the step fits in the card's memory).
+``patch_kernel`` (3*p*p, D) in (c, u, v) order.  ``DinoConfig.attn_impl``
+selects the attention as in the JAX package: "xla" (the default) writes it
+out (matmul, softmax, matmul); "flash" and "splash", two TPU kernels there,
+both select ``ops/flash_attention.flash_attention`` here, one hand-written
+CUDA flash attention (bf16 at head dim 64 on the card, its plain version on
+the CPU).  There is no quiet switch back to "xla".  The path runs without
+recomputation (the ViT has no weight gradients, and the step fits in the
+card's memory).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.flash_attention import flash_attention
 from ..ops.resize import _bicubic_matrix_ac, resize_bicubic_halfpix
 
 Tensor = torch.Tensor
@@ -44,6 +48,18 @@ class DinoConfig:
     pos_grid: int = 37  # native pos-embed grid (518 / 14)
     smaller_edge_size: int = 518  # reference dino.py:5
     layer_norm_eps: float = 1e-6
+    # "xla": attention written out (the name is the JAX package's); "flash"
+    # or "splash": ops/flash_attention.flash_attention, which picks its own
+    # tiles (the TPU tile knobs flash_block, splash_block and
+    # splash_fused_bwd have no counterpart).
+    attn_impl: str = "xla"
+
+    def __post_init__(self):
+        if self.attn_impl not in ("xla", "flash", "splash"):
+            raise ValueError(
+                "attn_impl must be 'xla', 'flash' or 'splash', "
+                f"got {self.attn_impl!r}"
+            )
 
     @property
     def feat_size(self) -> int:
@@ -139,13 +155,19 @@ def _attention(q: Tensor, k: Tensor, v: Tensor, hd: int) -> Tensor:
     return o * (1.0 / denom).to(dtype)
 
 
-def _block(x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float) -> Tensor:
+def _block(
+    x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float, attn_impl: str = "xla"
+) -> Tensor:
     b, n, d = x.shape
     hd = d // num_heads
     h = _layer_norm(x, p["norm1_scale"], p["norm1_bias"], eps)
     qkv = h @ p["qkv_kernel"] + p["qkv_bias"]  # (B, N, 3D)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    o = _attention(q, k, v, hd).transpose(1, 2).reshape(b, n, d)
+    if attn_impl == "xla":
+        o = _attention(q, k, v, hd)
+    else:  # q, k, v go in as the strided views they are
+        o = flash_attention(q, k, v, 1.0 / math.sqrt(hd))
+    o = o.transpose(1, 2).reshape(b, n, d)
     o = o @ p["proj_kernel"] + p["proj_bias"]
     x = x + p["ls1"] * o
     h = _layer_norm(x, p["norm2_scale"], p["norm2_bias"], eps)
@@ -176,7 +198,8 @@ def _trunk(params: dict[str, Any], x: Tensor, cfg: DinoConfig, gh: int, gw: int)
     blocks = params["blocks"]
     for i in range(cfg.depth):
         x = _block(
-            x, {k: v[i] for k, v in blocks.items()}, cfg.num_heads, cfg.layer_norm_eps
+            x, {k: v[i] for k, v in blocks.items()}, cfg.num_heads, cfg.layer_norm_eps,
+            cfg.attn_impl,
         )
     x = _layer_norm(x, params["norm_scale"], params["norm_bias"], cfg.layer_norm_eps)
     return x[:, 1:]

@@ -9,13 +9,17 @@ Tolerances: K1's silhouette and depths within 1e-5 and its hard outputs
 (no FMA contraction beyond the explicit ones); K2's d(xy) within rtol 1e-4
 and atol 1e-5 x max (f32 sums in another order).  K3's depths within
 1e-5 and its hit mask and winning slot equal, as K1's; the prior scores of
-the card and the CPU within 1e-5 (f32 ViT, TF32 off).
+the card and the CPU within 1e-5 (f32 ViT, TF32 off).  K5's o, dq, dk and dv
+within 2^-7 of the largest value (one bf16 step where the kernel and the
+plain version land on either side of a rounding boundary), its f32
+log-sum-exp and delta within 1e-5 of theirs.
 """
 import numpy as np
 import pytest
 import torch
 
 from dynhor_tpu_torch import kernels
+from dynhor_tpu_torch.ops import flash_attention as FA
 from dynhor_tpu_torch.ops import raster_fused as TF
 from dynhor_tpu_torch.ops import rasterize as TZ
 from dynhor_tpu_torch.tracker import priors as TP
@@ -156,3 +160,103 @@ def test_prior_scores_launch_k3_once_per_chunk(cuda):
     assert kernels.depth_fwd.launches - before == 3  # chunks of 4, 4 | 3 views
     s_cpu = TP.prior_scores_batched(*args, host_batch=8, device="cpu")
     torch.testing.assert_close(s_card.cpu(), s_cpu, rtol=0, atol=1e-5)
+
+
+def _block_views(cuda, b, h, n, seed):
+    """q, k, v and a cotangent as the ViT block makes them: strided views of
+    one (B, N, 3, H, 64) projection and of a (B, N, H * 64) gradient, bf16."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, n, 3, h, 64), generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn((b, n, h * 64), generator=gen).to(cuda, torch.bfloat16)
+    return (*qkv.permute(2, 0, 3, 1, 4), g.reshape(b, n, h, 64).transpose(1, 2))
+
+
+def _close(a, ref, tol):
+    a, ref = a.float(), ref.float()
+    assert bool(torch.isfinite(a).all())
+    assert float((a - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# Token counts: one short tile, a full tile, one more than a tile, the
+# prescreen's 65, and several tiles with a ragged last one.
+@pytest.mark.parametrize("n", [5, 64, 65, 200, 333])
+def test_flash_kernels_match_plain_versions(cuda, n):
+    q, k, v, g = _block_views(cuda, 3, 2, n, n)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, 0.125)
+    delta_p = FA.flash_delta_plain(o_p, g)
+    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, g, lse_p, delta_p, 0.125)
+    o, lse = kernels.flash_fwd(q, k, v, 0.125)
+    assert o.transpose(1, 2).is_contiguous()  # written as (B, N, H, 64)
+    _close(o, o_p, 2.0**-7)
+    _close(lse, lse_p, 1e-5)
+    _close(kernels.flash_bwd_delta(o_p, g), delta_p, 1e-5)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, g, lse_p, delta_p, 0.125)
+    _close(dk, dk_p, 2.0**-7)
+    _close(dv, dv_p, 2.0**-7)
+    _close(kernels.flash_bwd_dq(q, k, v, g, lse_p, delta_p, 0.125), dq_p, 2.0**-7)
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    """The autograd function launches each kernel once, is the same from run
+    to run, and agrees with the CPU's plain versions; a cotangent that
+    autograd expanded (a plain sum's) is taken too."""
+    q, k, v, g = _block_views(cuda, 2, 2, 150, 7)
+    before = [f.launches for f in (kernels.flash_fwd, kernels.flash_bwd_delta,
+                                   kernels.flash_bwd_dkv, kernels.flash_bwd_dq)]
+
+    def run(q, k, v, g):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = FA.flash_attention(*xs, 0.125)
+        if g is None:
+            o.float().sum().backward()
+        else:
+            o.backward(g)
+        return [o.detach()] + [x.grad for x in xs]
+
+    first, again = run(q, k, v, g), run(q, k, v, g)
+    after = [f.launches for f in (kernels.flash_fwd, kernels.flash_bwd_delta,
+                                  kernels.flash_bwd_dkv, kernels.flash_bwd_dq)]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    for a, e in zip(first, run(q.cpu(), k.cpu(), v.cpu(), g.cpu())):
+        _close(a.cpu(), e, 2.0**-7)
+    for a, e in zip(run(q, k, v, None), run(q.cpu(), k.cpu(), v.cpu(), None)):
+        _close(a.cpu(), e, 2.0**-7)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
+    before = kernels.flash_fwd.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.flash_fwd(x.float(), x.float(), x.float(), 0.125)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.flash_fwd(x[..., :16], x[..., :16], x[..., :16], 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 2, 64, 8), device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+        kernels.flash_fwd(t, t, t, 0.125)
+    with pytest.raises(ValueError, match="bfloat16"):  # no quiet cast, no plain version
+        FA.flash_attention(x.float(), x.float(), x.float(), 0.125)
+    assert kernels.flash_fwd.launches == before
+
+
+def test_vit_runs_through_flash_attention(cuda):
+    """forward_tokens_from_crop with attn_impl="flash" and "splash": K5's
+    forward once per layer, under inference mode too; tokens within bf16's
+    reach of the written-out attention."""
+    from dynhor_tpu_torch.models import dino as TD
+
+    kw = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2, pos_grid=4, smaller_edge_size=32)
+    params = TD.map_params(
+        TD.init_params(TD.DinoConfig(**kw), torch.Generator().manual_seed(0)),
+        lambda a: a.to(cuda, torch.bfloat16),
+    )
+    params["blocks"]["ls1"] = torch.ones_like(params["blocks"]["ls1"])
+    rgb = torch.rand((3, 3, 48, 48), generator=torch.Generator().manual_seed(1)).to(cuda)
+    ref = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(**kw)).float()
+    for impl in ("flash", "splash"):
+        before = kernels.flash_fwd.launches
+        with torch.inference_mode():
+            tok = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(attn_impl=impl, **kw))
+        assert kernels.flash_fwd.launches - before == 2
+        assert float((tok.float() - ref).abs().max()) <= 2.0**-5 * float(ref.abs().max())

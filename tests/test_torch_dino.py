@@ -1,6 +1,8 @@
 """Port ViT vs the JAX package with the JAX parameters carried across by
 ``params_from_jax``, at a tiny config (patch 8, dim 32, depth 2), in f32:
-tokens and d(tokens)/d(rgb) within 1e-4."""
+tokens and d(tokens)/d(rgb) within 1e-4, for each ``attn_impl`` of the port
+("flash" and "splash" run the flash attention's plain versions on the CPU;
+the JAX side runs "xla" there whatever it is asked for)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,7 @@ from dynhor_tpu_torch.models import dino as TD
 TINY = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, smaller_edge_size=32)
 
 
-def _params(pos_grid):
+def _params(pos_grid, attn_impl="xla"):
     cfg_j = JD.DinoConfig(pos_grid=pos_grid, **TINY)
     params_j = JD.init_params(jax.random.PRNGKey(0), cfg_j)
     # Non-trivial LayerNorm / LayerScale values, so every parameter matters.
@@ -21,15 +23,19 @@ def _params(pos_grid):
     params_j = jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params_j
     )
-    cfg_t = TD.DinoConfig(pos_grid=pos_grid, **TINY)
+    cfg_t = TD.DinoConfig(pos_grid=pos_grid, attn_impl=attn_impl, **TINY)
     return cfg_j, params_j, cfg_t, TD.params_from_jax(jax.tree.map(np.asarray, params_j))
 
 
 # pos_grid 4 = the token grid (no interpolation); 3 interpolates the
 # position embedding bicubically.
-@pytest.mark.parametrize("pos_grid", [4, 3])
-def test_tokens_from_crop_and_input_gradient(pos_grid):
-    cfg_j, params_j, cfg_t, params_t = _params(pos_grid)
+@pytest.mark.parametrize(
+    "pos_grid,attn_impl",
+    [(4, "xla"), (3, "xla"), (4, "flash"), (3, "flash"), (4, "splash"), (3, "splash")],
+    ids=["4", "3", "4-flash", "3-flash", "4-splash", "3-splash"],
+)
+def test_tokens_from_crop_and_input_gradient(pos_grid, attn_impl):
+    cfg_j, params_j, cfg_t, params_t = _params(pos_grid, attn_impl)
     rng = np.random.default_rng(1)
     rgb = rng.random((2, 3, 48, 48)).astype(np.float32)
     ct = rng.standard_normal((2, 16, 32)).astype(np.float32)

@@ -1,7 +1,9 @@
 """The slice: the port's ``refine_poses`` vs the JAX package's, on the box
 mesh of tests/test_refine_jointopt.py at 64², 3 Adam steps, with the JAX
 side on its Pallas fused raster (interpret mode) and an f32 ViT.  Losses,
-IoUs, rot6d and trans agree within 1e-4 after every step."""
+IoUs, rot6d and trans agree within 1e-4 after every step; the fine mode also
+with the port's ``attn_impl="flash"`` (the flash attention's plain versions
+on the CPU) against the same JAX trajectory."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -26,8 +28,12 @@ TINY = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, pos_grid=4, smalle
 
 # Fine mode with active-tile compaction (and Phong shading on active tiles
 # only); coarse mode dense over all tiles.
-@pytest.mark.parametrize("mode,max_active_tiles", [("fine", 12), ("coarse", None)])
-def test_refine_trajectory_matches(mode, max_active_tiles):
+@pytest.mark.parametrize(
+    "mode,max_active_tiles,attn_impl",
+    [("fine", 12, "xla"), ("coarse", None, "xla"), ("fine", 12, "flash")],
+    ids=["fine-12", "coarse-None", "fine-12-flash"],
+)
+def test_refine_trajectory_matches(mode, max_active_tiles, attn_impl):
     mesh = _mesh()
     dcfg_j = JD.DinoConfig(**TINY)
     dparams = JD.init_params(jax.random.PRNGKey(0), dcfg_j)
@@ -65,7 +71,7 @@ def test_refine_trajectory_matches(mode, max_active_tiles):
     )
     for step in range(STEPS):
         res = TR.refine_poses(
-            mesh_t, targets_t, R0, t0, params_t, TD.DinoConfig(**TINY),
+            mesh_t, targets_t, R0, t0, params_t, TD.DinoConfig(attn_impl=attn_impl, **TINY),
             dataclasses.replace(cfg_t, num_iterations=step + 1), device="cpu",
         )
         assert res.max_overflow == 0

@@ -11,9 +11,12 @@ packages at the small config of tests/test_priors_window.py (tiny f32 ViT,
 CPU the JAX package renders with ``rasterize_tiled`` and the port with K3's
 plain version; both are margin-0 hard rasters (test_torch_priors.py pins
 that down).  Scores within 1e-5, the rescored union and the counted caps
-identical, ``selected_idx`` exact, the translation init within 1e-4.
+identical, ``selected_idx`` exact, the translation init within 1e-4.  The
+port's chain runs once more with ``attn_impl="flash"`` (plain versions on the
+CPU; the prescreen's config must keep it) and is held to the same JAX chain.
 """
 import contextlib
+import functools
 import io
 
 import jax
@@ -148,13 +151,15 @@ def _run_chain(pkg, prior_mod, sel_mod, cam, bbox, to, params, dcfg, mesh, rots,
     }
 
 
-@pytest.fixture(scope="module")
-def chains():
+_VIT = dict(patch_size=14, embed_dim=32, depth=1, num_heads=2, pos_grid=4, smaller_edge_size=56)
+
+
+@functools.lru_cache(maxsize=1)
+def _chain_inputs():
     m = load_obj("assets/shoes/1229a2e6e97e_A_basketball_shoes_.obj")
     verts = np.asarray(JG.center_and_normalize_verts(jnp.asarray(m.verts)))
     mesh = (verts, np.asarray(m.faces), np.asarray(m.face_uvs), np.asarray(m.texture))
-    kw = dict(patch_size=14, embed_dim=32, depth=1, num_heads=2, pos_grid=4, smaller_edge_size=56)
-    params_j = JD.init_params(jax.random.PRNGKey(0), JD.DinoConfig(**kw))
+    params_j = JD.init_params(jax.random.PRNGKey(0), JD.DinoConfig(**_VIT))
     params_t = TD.params_from_jax(jax.tree.map(np.asarray, params_j))
     rots = np.asarray(JG.random_rotations(jax.random.PRNGKey(1), 24))
     crops = np.asarray(jax.random.uniform(jax.random.PRNGKey(5), (2, 3, 64, 64)))
@@ -162,15 +167,24 @@ def chains():
     masks[0, 16:48, 16:48] = 1.0
     masks[1, 10:50, 20:44] = 1.0
     masks[1, 30:34, :] = -1.0  # an occluder row: excluded from the cosine mask
-    args = (mesh, rots, crops, masks)
+    return params_j, params_t, (mesh, rots, crops, masks)
+
+
+def _torch_chain(attn_impl):
+    _, params_t, args = _chain_inputs()
+    return _run_chain(
+        "torch", TP, TS, TC, TB, torch.as_tensor, params_t,
+        TD.DinoConfig(attn_impl=attn_impl, **_VIT), *args, device="cpu",
+    )
+
+
+@pytest.fixture(scope="module")
+def chains():
+    params_j, _, args = _chain_inputs()
     jax_out = _run_chain(
-        "jax", JP, JS, JC, JB, jnp.asarray, params_j, JD.DinoConfig(**kw), *args
+        "jax", JP, JS, JC, JB, jnp.asarray, params_j, JD.DinoConfig(**_VIT), *args
     )
-    torch_out = _run_chain(
-        "torch", TP, TS, TC, TB, torch.as_tensor, params_t, TD.DinoConfig(**kw), *args,
-        device="cpu",
-    )
-    return jax_out, torch_out
+    return jax_out, _torch_chain("xla")
 
 
 def test_slice_frame_features_and_counted_caps(chains):
@@ -196,3 +210,28 @@ def test_slice_gating_and_translation_init(chains):
     np.testing.assert_allclose(t["rot"], j["rot"], atol=1e-6)
     np.testing.assert_allclose(t["trans"], j["trans"], atol=1e-4)
     assert np.isfinite(t["trans"]).all() and (t["trans"][:, 2] > 0).all()
+
+
+def test_slice_with_flash_attention(chains, monkeypatch):
+    """The port's chain with ``attn_impl="flash"`` against the JAX chain;
+    every ViT call of it, the prescreen's included, goes through the flash
+    attention."""
+    from dynhor_tpu_torch.models import dino as dino_mod
+
+    calls = []
+    real = dino_mod.flash_attention
+
+    def counting(q, k, v, sm_scale):
+        calls.append(q.shape[2])
+        return real(q, k, v, sm_scale)
+
+    monkeypatch.setattr(dino_mod, "flash_attention", counting)
+    j, _ = chains
+    t = _torch_chain("flash")
+    # Tokens: 4 x 4 + cls at the full edge 56, 2 x 2 + cls at the prescreen's 28.
+    assert set(calls) == {17, 5}
+    np.testing.assert_allclose(t["gt"], j["gt"], atol=1e-5)
+    np.testing.assert_array_equal(t["union"], j["union"])
+    np.testing.assert_allclose(t["scores"], j["scores"], atol=1e-5)
+    np.testing.assert_array_equal(t["idx"], j["idx"])
+    np.testing.assert_allclose(t["trans"], j["trans"], atol=1e-4)
