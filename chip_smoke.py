@@ -22,12 +22,27 @@ Phases; any failure exits non-zero.
    them; ``scaled_dot_product_attention``, forward and backward, is timed
    beside them (the port never calls it).  A "K5 bwd" row holds the whole
    backward (its three kernels) against the function's bound.
+2d. K4 (the separate soft silhouette) at the fine step's shapes: K4a and
+   K4b (K2's kernel on K4a's rows) against their plain versions, timed
+   beside their bounds; ``soft_silhouette_kernel`` forward and d(verts)
+   against the CPU's plain path and against ``soft_silhouette_tiled`` on
+   the card, which computes the same function.
+2e. K6: the gather probe's forms A-H (``tools/probe_gather``), each kernel
+   against its plain version, with kernel, plain and library times.
 3. The fine refine: ``refine_poses`` in fine mode, random-weight ViT-B/14
    at 518², bf16, 8 frames, 10 steps, once with the written-out attention
    (``attn_impl="xla"``: no K5 launch) and once with ``attn_impl="flash"``
    (each K5 kernel once per layer and step); K1 and K2 must launch exactly
    once per step.  Then the same entry point on a small scene, on the card
    and on the CPU (plain versions), must agree, for both attentions.
+3b. Joint optimization at full width: ``joint_optimize`` at the pipeline's
+   defaults (200 steps, lr 1e-4, smoothness weight 10, sigma 0.25) on the
+   phase-2 scene from jittered inits, ``silhouette_impl="pallas"``: K1 and
+   K2 once per step, no overflow, a falling loss, ms/step and peak memory.
+   Then a small scene on the card and on the CPU for "pallas", "tiled" and
+   "dense".
+3c. The fine-step profiler (``tools/profile_fine_step.run``, 5 calls per
+   piece): its lines, and K4a and K4b launched by its "OLD separate" piece.
 4. The prior path at full width, chained as the tracking pipeline chains
    it, once for each attention: 8 rendered frames, their DINO features,
    6,000 prior views scored in two stages (K3 once per view chunk; with
@@ -36,8 +51,8 @@ Phases; any failure exits non-zero.
    autodepth, and a 2-step fine refine from those inits.  A chunk of each
    stage is then timed and profiled alone.
 4b. The prior path on a small scene, card against CPU, for both attentions.
-5. Yardsticks: the bounds of the TPU kernels not yet ported, and
-   ``index_select`` timed at K6's shape.
+5. Every kernel of the ``kernels`` line launched on its path: K1-K3 and K5
+   in phases 3 and 4, K4a and K4b in 3c, K6 in 2e.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -78,12 +93,14 @@ PEAK_BYTES = 3.35e12
 # coefficient 3, segment choice 2, endpoint sums 13).
 # K3 does 23 per pair of a visible face (barycentrics 18, inside test 5)
 # and K3_OPS_INSIDE = 9 more where the pixel lies inside it (depth 5, depth
-# test 4); the kernel skips the rest.  The unported K4a computes K1's mass
-# without the depth (81), K4b the same backward as K2 (100).
+# test 4); the kernel skips the rest.  K4a computes K1's mass without the
+# depth (81), K4b the same backward as K2 (100).
 OPS_PER_PAIR = {"K1": 90, "K2": 100, "K3": 23, "K4a": 81, "K4b": 100}
 K3_OPS_INSIDE = 9
 PEAK_BF16 = 989e12  # tensor cores, dense
 PRIOR_VIEWS = 6000  # io/config.py prior.num_views
+JOINT_STEPS = 200  # io/config.py system.joint_num_iterations
+CPU_FRAMES = 2  # frames of phase 2d's card-vs-CPU check
 
 
 def fail(msg: str) -> None:
@@ -119,6 +136,9 @@ def _counted(kernels) -> dict:
         "K1": kernels.fused_fwd, "K2": kernels.sil_bwd, "K3": kernels.depth_fwd,
         "K5 fwd": kernels.flash_fwd, "K5 delta": kernels.flash_bwd_delta,
         "K5 dkv": kernels.flash_bwd_dkv, "K5 dq": kernels.flash_bwd_dq,
+        "K4a": kernels.sil_mass_fwd, "K4b": kernels.sil_mass_bwd,
+        "K6 take_along_axis": kernels.take_along_axis,
+        "K6 scatter_add_axis0": kernels.scatter_add_axis0,
     }
 
 
@@ -213,7 +233,20 @@ def phase_build() -> str:
     return smi
 
 
-def phase_kernels(dev, sc, card: str) -> tuple[list[dict], int]:
+def kernel_row(name, source, replaces, err, ms, plain_ms, ops, nbytes, peak=PEAK_FLOPS,
+               library_ms=None) -> dict:
+    """One row of the ``kernels`` line; its launches are filled in by the
+    phase that drives the kernel's path."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def phase_kernels(dev, sc, card: str) -> list[dict]:
     from dynhor_tpu_torch import kernels
     from dynhor_tpu_torch.ops import raster_fused as RFU
 
@@ -311,23 +344,16 @@ def phase_kernels(dev, sc, card: str) -> tuple[list[dict], int]:
          "dynhor_tpu/ops/raster_pallas.py:262 _sil_bwd_kernel"),
     ):
         ops = n_pix * OPS_PER_PAIR[key]
-        t_ops = ops / PEAK_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        rows_out.append({
-            "name": name, "route": "cuda",
-            "source": "dynhor_tpu_torch/csrc/raster_fused.cu", "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        })
+        row = kernel_row(name, "dynhor_tpu_torch/csrc/raster_fused.cu", replaces, err, ms,
+                         plain_ms, ops, nbytes)
+        rows_out.append(row)
         print(
             f"[kernels] {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{max(t_ops, t_bytes):.5f} ms ({ops:.3e} ops at {PEAK_FLOPS:.3g}/s, "
+            f"{row['bound_ms']:.5f} ms ({ops:.3e} ops at {PEAK_FLOPS:.3g}/s, "
             f"{nbytes} bytes) — {card}",
             flush=True,
         )
-    return rows_out, pairs
+    return rows_out
 
 
 def block_views(b, h, n, d, seed, dev):
@@ -448,16 +474,12 @@ def phase_flash_kernels(dev, card: str) -> list[dict]:
             err = {"K5 fwd": errs["o"][0], "K5 delta": errs["delta"][0],
                    "K5 dkv": max(errs["dk"][0], errs["dv"][0]), "K5 dq": errs["dq"][0],
                    "K5 bwd": max(errs[name][0] for name in ("delta", "dq", "dk", "dv"))}[key]
-            rows.append({
-                "name": key + " flash_attention", "route": "cuda",
-                "source": "dynhor_tpu_torch/csrc/flash_attention.cu",
-                "replaces": "dynhor_tpu/models/dino.py:202 _flash_attention and "
-                            "dynhor_tpu/models/dino.py:243 _splash_attention",
-                "launches": 0, "max_abs_err": err, "ms": ms[key], "plain_ms": plain[key],
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": library.get(key),
-            })
+            rows.append(kernel_row(
+                key + " flash_attention", "dynhor_tpu_torch/csrc/flash_attention.cu",
+                "dynhor_tpu/models/dino.py:202 _flash_attention and "
+                "dynhor_tpu/models/dino.py:243 _splash_attention",
+                err, ms[key], plain[key], ops, nbytes, peak, library.get(key),
+            ))
             print(
                 f"[k5] N={n} {key}: {ms[key]:.4f} ms, plain {plain[key]:.3f} ms, bound "
                 f"{max(t_ops, t_bytes):.5f} ms ({ops:.4e} ops = {t_ops:.5f} ms, {nbytes} bytes "
@@ -476,6 +498,155 @@ def phase_flash_kernels(dev, card: str) -> list[dict]:
         if rows_out is None:
             rows_out = rows
     return rows_out
+
+
+def phase_silhouette_kernels(dev, sc, card: str) -> list[dict]:
+    """K4a and K4b against their plain versions on the rows
+    ``soft_silhouette_kernel`` packs for the phase-2 scene (8 frames, 256²,
+    the counted cap, all 256 tiles), then the whole function against the
+    CPU's plain path and against ``soft_silhouette_tiled`` on the card.
+
+    Tolerances: K4a as K1 (silhouette 1e-5, mass 1e-4 relative), K4b as K2
+    (rtol 1e-4, atol 1e-5 x max); the function card vs CPU the same; card
+    kernel vs card tiled path as tests/test_rasterize_tiled.py holds the
+    Pallas kernel to the tiled path: silhouette 1e-5, d(verts) 99.9 % of
+    values within 2e-4 x max and all within 1e-2 x max (the tiled path
+    rounds the point-segment products apart where the kernel fuses them,
+    so near a corner another segment may win)."""
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.ops import raster_fused as RFU
+    from dynhor_tpu_torch.ops import silhouette_kernel as SK
+    from dynhor_tpu_torch.ops.rasterize_tiled import soft_silhouette_tiled
+
+    mesh, _, _, _, vp, _, cap, _ = sc
+    rows, counts, tw = SK.kernel_inputs(vp, mesh.faces, (CROP, CROP), SIGMA, TILE, cap)
+    b, t_rows, m, _ = rows.shape
+    pairs = int(counts.sum())
+    args = (TILE, tw, SIGMA)
+    mass = kernels.sil_mass_fwd(rows, counts, *args)
+    mass_p = SK.tile_mass_plain(rows, counts, *args)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    g = torch.randn((b, t_rows, TILE * TILE), generator=gen).to(dev)
+    dxy = kernels.sil_mass_bwd(rows, counts, g, *args)
+    dxy_p = RFU.tile_mass_grad_plain(rows, counts, g, *args)
+    torch.cuda.synchronize()
+    sil_err = float((torch.exp(-mass) - torch.exp(-mass_p)).abs().max())
+    mass_err = float(((mass - mass_p).abs() / mass_p.abs().clamp_min(1.0)).max())
+    scale = float(dxy_p.abs().max())
+    k4b_err = float((dxy - dxy_p).abs().max())
+    k4b_ok = bool(((dxy - dxy_p).abs() <= 1e-5 * scale + 1e-4 * dxy_p.abs()).all())
+    print(
+        f"[k4] rows {tuple(rows.shape)} (frames, tiles, cap {cap}, 16), sum(counts) {pairs} "
+        f"face-tile pairs, max count {int(counts.max())}; K4a vs plain: sil max abs err "
+        f"{sil_err:.3g}, mass max rel err {mass_err:.3g}; K4b vs plain: d(xy) max abs err "
+        f"{k4b_err:.3g} (max |d(xy)| {scale:.3g})", flush=True,
+    )
+    check(sil_err <= 1e-5 and mass_err <= 1e-4, "K4a differs from its plain version")
+    check(k4b_ok, "K4b d(xy) outside rtol 1e-4, atol 1e-5 x max")
+    ms = {"K4a": cuda_ms(lambda: kernels.sil_mass_fwd(rows, counts, *args)),
+          "K4b": cuda_ms(lambda: kernels.sil_mass_bwd(rows, counts, g, *args))}
+    plain = {"K4a": cuda_ms(lambda: SK.tile_mass_plain(rows, counts, *args), reps=3),
+             "K4b": cuda_ms(lambda: RFU.tile_mass_grad_plain(rows, counts, g, *args), reps=3)}
+    # Bytes: each slot's 8 floats of geometry and visibility and the counts
+    # in; K4a writes the mass, K4b reads the cotangent and writes 6 floats
+    # per slot.
+    n_pix = pairs * TILE * TILE
+    in_bytes = pairs * 32 + b * t_rows * 4
+    out = []
+    for key, name, err, nbytes, replaces in (
+        ("K4a", "K4a tile_masses", max(sil_err, mass_err), in_bytes + b * t_rows * TILE * TILE * 4,
+         "dynhor_tpu/ops/silhouette_pallas.py:183 _fwd_kernel"),
+        ("K4b", "K4b tile_mass_grads", k4b_err,
+         in_bytes + b * t_rows * TILE * TILE * 4 + b * t_rows * m * 24,
+         "dynhor_tpu/ops/silhouette_pallas.py:193 _bwd_kernel"),
+    ):
+        row = kernel_row(name, "dynhor_tpu_torch/csrc/raster_fused.cu", replaces, err, ms[key],
+                         plain[key], n_pix * OPS_PER_PAIR[key], nbytes)
+        out.append(row)
+        print(
+            f"[k4] {name}: {ms[key]:.4f} ms, plain {plain[key]:.3f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({n_pix} pixel-slot pairs x {OPS_PER_PAIR[key]} ops, "
+            f"{nbytes} bytes) — {card}", flush=True,
+        )
+
+    # The whole function: card (K4a/K4b) vs CPU (plain) vs card tiled path.
+    w = torch.randn((FRAMES, CROP, CROP), generator=gen)
+
+    def f_and_b(fn, v):
+        v = v.detach().clone().requires_grad_(True)
+        sil = fn(v, mesh.faces.to(v.device), (CROP, CROP), SIGMA, TILE, cap)
+        (sil * w[: len(v)].to(v.device)).sum().backward()
+        return sil.detach(), v.grad
+
+    def sil_and_grad(fn, v):
+        return tuple(x.cpu() for x in f_and_b(fn, v))
+
+    torch.cuda.reset_peak_memory_stats()
+    sil_k, gv_k = sil_and_grad(SK.soft_silhouette_kernel, vp)
+    peak_k = torch.cuda.max_memory_allocated()
+    # The CPU's plain path on the first CPU_FRAMES frames (each frame's
+    # silhouette is independent of the others).
+    sil_c, gv_c = sil_and_grad(SK.soft_silhouette_kernel, vp[:CPU_FRAMES].cpu())
+    torch.cuda.reset_peak_memory_stats()
+    sil_t, gv_t = sil_and_grad(soft_silhouette_tiled, vp)
+    peak_t = torch.cuda.max_memory_allocated()
+    gscale = float(gv_c.abs().max())
+    s_err = float((sil_k[:CPU_FRAMES] - sil_c).abs().max())
+    gd = (gv_k[:CPU_FRAMES] - gv_c).abs()
+    gv_err, gv_ok = float(gd.max()), bool((gd <= 1e-5 * gscale + 1e-4 * gv_c.abs()).all())
+    t_err = float((sil_k - sil_t).abs().max())
+    dt = (gv_k - gv_t).abs()
+    q999, dt_max = float(torch.quantile(dt.flatten(), 0.999)), float(dt.max())
+    f_ms = {
+        "kernel": cuda_ms(lambda: f_and_b(SK.soft_silhouette_kernel, vp), reps=5),
+        "tiled": cuda_ms(lambda: f_and_b(soft_silhouette_tiled, vp), reps=3),
+    }
+    print(
+        f"[k4] soft_silhouette_kernel, card vs CPU plain ({CPU_FRAMES} frames): sil max abs err {s_err:.3g}, d(verts) "
+        f"max abs err {gv_err:.3g} (max |d(verts)| {gscale:.3g}); vs soft_silhouette_tiled on the "
+        f"card: sil max abs err {t_err:.3g}, d(verts) 99.9 % quantile {q999:.3g}, max {dt_max:.3g}; "
+        f"forward + backward {f_ms['kernel']:.3f} ms (peak {peak_k / 2**30:.2f} GiB) against the "
+        f"tiled path's {f_ms['tiled']:.3f} ms (peak {peak_t / 2**30:.2f} GiB) — {card}", flush=True,
+    )
+    check(s_err <= 1e-5 and gv_ok, "soft_silhouette_kernel differs between the card and the CPU")
+    check(t_err <= 1e-5 and q999 <= 2e-4 * gscale and dt_max <= 1e-2 * gscale,
+          "soft_silhouette_kernel differs from soft_silhouette_tiled on the card")
+    return out
+
+
+def phase_gather_kernels(dev, card: str) -> list[dict]:
+    """K6: every form of the gather probe, kernel against plain version
+    (the probe's own checks), and its timed shapes; returns the two rows,
+    each timed at the shape of the TPU kernel it replaces (the timed
+    gather :210, form H :249), their launches those of this probe run.  The
+    probe's lines at the hash backward's shape, where the JAX tool times
+    only XLA, are printed and kept out of the rows."""
+    from dynhor_tpu_torch.tools import probe_gather as PG
+
+    reset_launches()
+    res = PG.run(dev, reps=20, out=lambda line: print(f"[k6] {line}", flush=True))
+    launches = read_launches()
+    failed = [k for k, ok in res["forms"].items() if not ok]
+    check(not failed, f"K6 forms that differ from their plain versions: {failed}")
+    timed = res["timed"]
+    out = []
+    for name, key, err, shape, replaces in (
+        ("K6 take_along_axis", "E per-lane gather 2048x128 of 8192x128", res["max_abs_err"]["take"],
+         "per-lane gather 2048x128 of 8192x128",
+         "tools/probe_pallas_gather.py:43 form A (and the pallas_calls of B :62, C :82, D :102, "
+         "E :127, F :147, G :168 and the timed gather :210)"),
+        ("K6 scatter_add_axis0", "H scatter-add (512,128) += (256,128)", res["max_abs_err"]["scatter"],
+         "form H scatter-add (512, 128) += (256, 128)", "tools/probe_pallas_gather.py:249 form H"),
+    ):
+        t = timed[key]
+        row = kernel_row(name, "dynhor_tpu_torch/csrc/gather_probe.cu", replaces, err, t["ms"],
+                         t["plain_ms"], 0, t["bytes"], library_ms=t["library_ms"])
+        row["launches"] = launches[name]
+        out.append(row)
+        print(f"[k6] {name} at the {shape}: {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
+              f"{t['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms (bytes); launches in the "
+              f"probe {launches[name]} — {card}", flush=True)
+    return out
 
 
 def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg) -> dict:
@@ -626,7 +797,7 @@ def step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, 
             key = "K5"
         elif any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
             key = "matmul"
-        elif "fused_fwd_kernel" in name or "sil_bwd_kernel" in name:
+        elif "mass_fwd_kernel" in name or "sil_bwd_kernel" in name:
             key = "K1+K2"
         else:
             key = "other kernels"
@@ -715,6 +886,127 @@ def phase_small_reference(dev, attn_impl: str = "xla") -> None:
         tols = {"rot6d": 1e-3, "trans": 1e-3, "loss": 1e-3, "iou": 1e-2}
     check(all(errs[k] <= tols[k] for k in errs),
           f"card and CPU trajectories differ by more than {tols}")
+
+
+def phase_joint(dev, sc, card: str) -> dict:
+    """joint_optimize at full width: the phase-2 scene's 8 frames at 256²,
+    its counted caps, the pipeline's defaults, from inits jittered off the
+    scene's poses by a numpy seed, ``silhouette_impl="pallas"``."""
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+    from dynhor_tpu_torch.utils import geometry as G
+
+    mesh, rot, trans, K, _, masks, cap, act_cap = sc
+    rng = np.random.default_rng(6)
+    r6 = G.matrix_to_rot6d(rot)
+    R0 = G.rot6d_to_matrix(r6 + torch.as_tensor(0.05 * rng.standard_normal(r6.shape),
+                                                dtype=torch.float32, device=dev))
+    t0 = trans + torch.as_tensor(0.02 * rng.standard_normal((FRAMES, 3)), dtype=torch.float32,
+                                 device=dev)
+    cfg = TJ.JointConfig(
+        num_iterations=JOINT_STEPS, lr=1e-4, lw_sil_obj=1.0, lw_smooth_obj=10.0, crop_size=CROP,
+        sigma=SIGMA, max_faces_per_tile=cap, max_active_tiles=act_cap, silhouette_impl="pallas",
+    )
+    args = (mesh.verts, mesh.faces, R0, t0, K.expand(FRAMES, 3, 3), masks)
+    TJ.joint_optimize(*args, dataclasses.replace(cfg, num_iterations=2), device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, sec = wall(lambda: TJ.joint_optimize(*args, cfg, device=dev))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    h = {k: v.numpy() for k, v in res.history.items()}
+    check(set(h) == set(TJ.HISTORY_KEYS), f"history keys {sorted(h)}")
+    check(all(len(v) == JOINT_STEPS and np.isfinite(v).all() for v in h.values()),
+          "joint history not finite or of the wrong length")
+    check(launches["K1"] == JOINT_STEPS and launches["K2"] == JOINT_STEPS,
+          f"joint opt launched K1 {launches['K1']} and K2 {launches['K2']} times in {JOINT_STEPS} steps")
+    check(float(h["bin_overflow"].max()) == 0.0, "joint opt overflowed its counted caps")
+    check(float(h["loss"][-1]) < float(h["loss"][0]), "joint opt loss did not fall")
+    check(float(res.scale) == 1.0, "the frozen scale moved")
+    ms_step = sec / JOINT_STEPS * 1e3
+    print(
+        f"[joint] joint_optimize \"pallas\", {FRAMES} frames at {CROP}², caps {cap}/{act_cap}, "
+        f"{JOINT_STEPS} steps in chunks of 50: {ms_step:.3f} ms/step ({sec:.3f} s), peak "
+        f"{peak / 2**30:.2f} GiB allocated; loss {h['loss'][0]:.6g} -> {h['loss'][-1]:.6g}, "
+        f"IoU {h['iou_object'][0]:.4f} -> {h['iou_object'][-1]:.4f}; launches K1 "
+        f"{launches['K1']}, K2 {launches['K2']} — {card}", flush=True,
+    )
+    return {"ms_step": ms_step, "peak_gib": peak / 2**30}
+
+
+def phase_joint_small(dev) -> None:
+    """joint_optimize on a small scene (the box mesh at 64², 3 frames, 6
+    steps in chunks of 4), on the card and on the CPU, for each silhouette
+    implementation; poses and every history value agree within 1e-4 (f32
+    on both sides: K1/K2 round as their plain versions, the plain paths sum
+    in another order)."""
+    from dynhor_tpu_torch.ops import rasterize as RZ
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+    from dynhor_tpu_torch.utils import geometry as G
+
+    s = 64
+    v = torch.tensor(
+        [[-0.3, -0.2, -0.1], [0.3, -0.2, -0.1], [0.3, 0.2, -0.1], [-0.3, 0.2, -0.1],
+         [-0.3, -0.2, 0.1], [0.3, -0.2, 0.1], [0.3, 0.2, 0.1], [-0.3, 0.2, 0.1]]
+    )
+    f = torch.tensor(
+        [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
+         [3, 2, 6], [3, 6, 7], [1, 5, 6], [1, 6, 2], [0, 3, 7], [0, 7, 4]]
+    )
+    R = uniform_rotations(3, 8, "cpu")
+    t = torch.tensor([[0.0, 0.0, 2.0], [0.03, -0.02, 2.05], [0.05, -0.03, 2.1]])
+    K = torch.tensor([[float(s), 0, s / 2], [0, float(s), s / 2], [0, 0, 1.0]]).expand(3, 3, 3)
+    masks = (RZ.rasterize(RZ.project_perspective(v @ R + t[:, None], K), f, (s, s),
+                          face_chunk=12).pix_to_face >= 0).float()
+    noise = torch.as_tensor(0.05 * np.random.default_rng(9).standard_normal((3, 3, 2)),
+                            dtype=torch.float32)
+    R0 = G.rot6d_to_matrix(G.matrix_to_rot6d(R) + noise)
+    for impl in ("pallas", "tiled", "dense"):
+        cfg = TJ.JointConfig(num_iterations=6, lr=1e-3, crop_size=s, face_chunk=12,
+                             silhouette_impl=impl)
+        reset_launches()
+        r_dev = TJ.joint_optimize(v, f, R0, t + 0.02, K, masks, cfg, iters_per_launch=4, device=dev)
+        launches = read_launches()
+        r_cpu = TJ.joint_optimize(v, f, R0, t + 0.02, K, masks, cfg, iters_per_launch=4, device="cpu")
+        errs = {"rot6d": float((r_dev.rot6d.cpu() - r_cpu.rot6d).abs().max()),
+                "trans": float((r_dev.translations.cpu() - r_cpu.translations).abs().max())}
+        errs.update({k: float((r_dev.history[k] - r_cpu.history[k]).abs().max())
+                     for k in TJ.HISTORY_KEYS})
+        print(f"[joint-small {impl}] 6 steps, card vs CPU max abs err: {errs}; launches K1 "
+              f"{launches['K1']}, K2 {launches['K2']}", flush=True)
+        want = 6 if impl == "pallas" else 0
+        check(launches["K1"] == want and launches["K2"] == want,
+              f"joint opt {impl} launched K1/K2 {launches['K1']}/{launches['K2']} times")
+        check(all(e <= 1e-4 for e in errs.values()),
+              f"joint opt {impl}: card and CPU differ by more than 1e-4: {errs}")
+
+
+def phase_profiler(dev, sc, card: str, kernel_rows: list[dict]) -> None:
+    """The fine-step profiler at full width, 5 calls per piece after 3
+    warm-ups; K4a and K4b must launch in its "OLD separate" piece, and
+    their rows take the launches of this run.  Their times stay those of
+    phase 2d, on the phase-2 scene's rows: the profiler's scene (its own
+    seed, camera and counted cap) is another load."""
+    from dynhor_tpu_torch.tools import profile_fine_step as PF
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, sec = wall(lambda: PF.run(dev, n=5, out=lambda line: print(f"[profile] {line}", flush=True)))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    old = res["old_separate_launches"]
+    print(f"[profile] {sec:.1f} s, peak {peak / 2**30:.2f} GiB allocated; launches in the OLD "
+          f"separate piece {old}, in the whole run {launches} (the K4a/K4b rows take these "
+          f"launches at the profiler's cap {res['caps'][0]} and keep phase 2d's times at cap "
+          f"{sc[6]}) — {card}", flush=True)
+    check(old["K4a"] > 0 and old["K4b"] > 0, f"the OLD separate piece launched {old}")
+    check(launches["K4a"] == old["K4a"] and launches["K4b"] == old["K4b"],
+          "K4 launched outside the OLD separate piece")
+    for row in kernel_rows:
+        key = row["name"].split(" ", 1)[0]
+        if key in ("K4a", "K4b"):
+            row["launches"] = launches[key]
 
 
 def prior_mesh(device):
@@ -816,15 +1108,11 @@ def phase_depth_kernel(dev, card: str) -> dict:
         check(n_mism == 0, f"K3 pix_to_face differs at {n_mism} pixels ({stage})")
         check(z_err <= 1e-5, f"K3 zbuf error {z_err} > 1e-5 ({stage})")
         if row is None:
-            row = {
-                "name": "K3 tile_depth", "route": "cuda",
-                "source": "dynhor_tpu_torch/csrc/raster_fused.cu",
-                "replaces": "dynhor_tpu/ops/raster_pallas.py:205 _depth_fwd_kernel",
-                "launches": 0, "max_abs_err": z_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None,
-            }
+            row = kernel_row(
+                "K3 tile_depth", "dynhor_tpu_torch/csrc/raster_fused.cu",
+                "dynhor_tpu/ops/raster_pallas.py:205 _depth_fwd_kernel", z_err, ms, plain_ms, ops,
+                nbytes,
+            )
     return row
 
 
@@ -1104,38 +1392,6 @@ def phase_priors_small(dev, attn_impl: str = "xla") -> None:
         check(torch.equal(i_dev, i_cpu), "gating selected other views on the card")
 
 
-def phase_yardsticks(dev, card: str, fine_pairs: int) -> None:
-    """Bounds of the TPU kernels still to port, from their shapes, and
-    ``torch.index_select`` at K6's shape as its yardstick (the port never
-    calls it for that)."""
-    # K4a/K4b at the fine step's load (its sum(counts) from phase 2): K4a
-    # reads 8-float records and writes one float per pixel, K4b reads them
-    # with the cotangent and writes 8 floats per slot.
-    b, t_rows = FRAMES, (-(-CROP // TILE)) ** 2
-    for key, nbytes in (
-        ("K4a", fine_pairs * 32 + b * t_rows * (4 + TILE * TILE * 4)),
-        ("K4b", fine_pairs * 32 * 2 + b * t_rows * (4 + TILE * TILE * 4)),
-    ):
-        ops = fine_pairs * TILE * TILE * OPS_PER_PAIR[key]
-        print(
-            f"[bounds] {key}: {ops:.4e} f32 ops = {ops / PEAK_FLOPS * 1e3:.5f} ms; "
-            f"{nbytes} bytes = {nbytes / PEAK_BYTES * 1e3:.5f} ms", flush=True,
-        )
-    # K6 form A: 1024 rows of 8 f32 gathered from an (8192, 8) table.
-    nbytes = 1024 * 4 + 2 * 1024 * 8 * 4
-    print(f"[bounds] K6 row gather: {nbytes} bytes = {nbytes / PEAK_BYTES * 1e3:.7f} ms",
-          flush=True)
-    table = torch.randn((8192, 8), generator=torch.Generator().manual_seed(4)).to(dev)
-    idx = torch.randint(0, 8192, (1024,), generator=torch.Generator().manual_seed(5)).to(
-        dev, torch.int32
-    )
-    ms = cuda_ms(lambda: torch.index_select(table, 0, idx), 100)
-    print(
-        f"[yardstick] torch.index_select at K6's shape (table (8192, 8) f32, 1024 i32 "
-        f"indices): {ms:.5f} ms (bound {nbytes / PEAK_BYTES * 1e3:.7f} ms) — {card}", flush=True,
-    )
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the card; it never runs the CPU path)")
@@ -1144,9 +1400,11 @@ def main() -> None:
     dev = torch.device("cuda")
     smi = phase_build()
     sc = scene(dev)
-    kernel_rows, fine_pairs = phase_kernels(dev, sc, smi)
+    kernel_rows = phase_kernels(dev, sc, smi)
     kernel_rows.append(phase_depth_kernel(dev, smi))
     kernel_rows.extend(phase_flash_kernels(dev, smi))
+    kernel_rows.extend(phase_silhouette_kernels(dev, sc, smi))
+    kernel_rows.extend(phase_gather_kernels(dev, smi))
     from dynhor_tpu_torch.models.dino import DinoConfig
 
     flash = DinoConfig(attn_impl="flash")
@@ -1161,6 +1419,9 @@ def main() -> None:
     )
     for impl in ("xla", "flash"):
         phase_small_reference(dev, impl)
+    phase_joint(dev, sc, smi)
+    phase_joint_small(dev)
+    phase_profiler(dev, sc, smi, kernel_rows)
     pw = phase_priors(dev, smi, kernel_rows, DinoConfig())
     pf = phase_priors(dev, smi, kernel_rows, flash)
     print(
@@ -1172,7 +1433,6 @@ def main() -> None:
     )
     for impl in ("xla", "flash"):
         phase_priors_small(dev, impl)
-    phase_yardsticks(dev, smi, fine_pairs)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]
     check(not missing, f"kernels of the path that the main path never launched: {missing}")
     print(json.dumps({"kernels": kernel_rows}), flush=True)

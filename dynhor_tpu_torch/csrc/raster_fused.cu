@@ -1,12 +1,20 @@
 // Tile raster kernels for sm_90a: the fused forward (K1), its silhouette
-// backward (K2) and the depth-only hard raster of the prior views (K3).
+// backward (K2), the depth-only hard raster of the prior views (K3) and the
+// mass-only forward of the separate soft silhouette (K4a).
 //
 // K1 replaces dynhor_tpu/ops/raster_pallas.py:_fused_fwd_kernel, K2 replaces
 // dynhor_tpu/ops/raster_pallas.py:_sil_bwd_kernel, K3 replaces
-// dynhor_tpu/ops/raster_pallas.py:_depth_fwd_kernel.  Plain PyTorch versions
-// live in dynhor_tpu_torch/ops/raster_fused.py (tile_mass_depth_plain,
-// tile_mass_grad_plain, tile_depth_plain); the wrappers in
-// dynhor_tpu_torch/kernels.py launch these kernels for CUDA tensors.
+// dynhor_tpu/ops/raster_pallas.py:_depth_fwd_kernel, K4a replaces
+// dynhor_tpu/ops/silhouette_pallas.py:_fwd_kernel.  K4b
+// (dynhor_tpu/ops/silhouette_pallas.py:_bwd_kernel) computes K2's function:
+// both run _tile_mass_grad_analytic over a tile's slots, K4b over every
+// 128-slot chunk of the padded cap, K2 up to the tile's count, and the
+// padding slots past the count have vis = 0 and add nothing.  So K4b is
+// sil_bwd_kernel launched on K4a's rows; there is no second copy of it.
+// Plain PyTorch versions live in dynhor_tpu_torch/ops/raster_fused.py
+// (tile_mass_depth_plain, tile_mass_grad_plain, tile_depth_plain) and
+// dynhor_tpu_torch/ops/silhouette_kernel.py (tile_mass_plain); the wrappers
+// in dynhor_tpu_torch/kernels.py launch these kernels for CUDA tensors.
 //
 // Layout.  rows: (n_blocks = frames x tile rows, m slots, 16) f32 records
 //   [x0 y0 x1 y1 x2 y2 vis pad | z0 z1 z2 pad x5]; counts: (n_blocks,) i32 —
@@ -26,6 +34,13 @@
 // stops at the tile's true count, so work scales with the scene's load and
 // not with the counted cap.  The frame axis is part of the grid: one launch
 // covers every frame of a step.  K2 needs no atomics and is deterministic.
+//
+// K4a is K1 without the depth: the same loop, staging and stop at the count
+// (one template, mass_fwd_kernel<kDepth>), 81 of K1's 90 operations per pair
+// and 4 of its 12 output bytes per pixel, so operations bound it as they
+// bound K1.  The TPU version's 8 tiles per program and 128-face chunks over
+// the padded cap were VMEM blocking and do not come across.  It reads K1's
+// 16-float records, whose depth words it skips.
 //
 // K3 does a quarter of K1's work per pair (about twenty operations: the
 // barycentrics and the inside test; the depth and its test only where the
@@ -118,13 +133,15 @@ __device__ __forceinline__ Pair pair_geometry(const float* r, float px, float py
   return q;
 }
 
-// K1: one block per (frame, tile row), one thread per pixel of the tile.
-__global__ void fused_fwd_kernel(const float* __restrict__ rows,
-                                 const int* __restrict__ counts,
-                                 float* __restrict__ mass_out,
-                                 float* __restrict__ zmin_out,
-                                 int* __restrict__ jbest_out, int t_rows, int m,
-                                 int tile, int tiles_w, float sigma, float znear) {
+// K1 (kDepth) and K4a (!kDepth): one block per (frame, tile row), one thread
+// per pixel of the tile.  K4a writes neither zmin_out nor jbest_out.
+template <bool kDepth>
+__global__ void mass_fwd_kernel(const float* __restrict__ rows,
+                                const int* __restrict__ counts,
+                                float* __restrict__ mass_out,
+                                float* __restrict__ zmin_out,
+                                int* __restrict__ jbest_out, int t_rows, int m,
+                                int tile, int tiles_w, float sigma, float znear) {
   __shared__ float4 s_rows[kChunk * kRow / 4];
   const int bt = blockIdx.x;
   const int t = bt % t_rows;
@@ -149,17 +166,21 @@ __global__ void fused_fwd_kernel(const float* __restrict__ rows,
       if (!q.visible) continue;  // adds no mass and no hit
       const float logit = q.sign * sqrtf(fmaxf(q.d2, 1e-12f)) / sigma;
       mass += fmaxf(logit, 0.0f) + log1pf(expf(-fabsf(logit)));
-      const float z = q.w0 * r[8] + q.w1 * r[9] + q.w2 * r[10];
-      if (q.inside && z > znear && z < zmin) {
-        zmin = z;
-        jbest = base + j;
+      if constexpr (kDepth) {
+        const float z = q.w0 * r[8] + q.w1 * r[9] + q.w2 * r[10];
+        if (q.inside && z > znear && z < zmin) {
+          zmin = z;
+          jbest = base + j;
+        }
       }
     }
   }
   const size_t o = static_cast<size_t>(bt) * blockDim.x + p;
   mass_out[o] = mass;
-  zmin_out[o] = zmin;
-  jbest_out[o] = jbest;
+  if constexpr (kDepth) {
+    zmin_out[o] = zmin;
+    jbest_out[o] = jbest;
+  }
 }
 
 // K2: one block per (frame, tile row); thread i owns slots i, i + blockDim,
@@ -282,15 +303,28 @@ int dynhor_fused_fwd(const void* rows, const void* counts, void* mass,
                      void* zmin, void* jbest, int n_blocks, int t_rows, int m,
                      int tile, int tiles_w, float sigma, float znear,
                      void* stream) {
-  fused_fwd_kernel<<<n_blocks, tile * tile, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  mass_fwd_kernel<true><<<n_blocks, tile * tile, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), static_cast<const int*>(counts),
       static_cast<float*>(mass), static_cast<float*>(zmin),
       static_cast<int*>(jbest), t_rows, m, tile, tiles_w, sigma, znear);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 launch.  Returns cudaGetLastError() after the launch (0 = launched).
+// K4a launch.  Returns cudaGetLastError() after the launch (0 = launched).
+int dynhor_sil_mass_fwd(const void* rows, const void* counts, void* mass,
+                        int n_blocks, int t_rows, int m, int tile, int tiles_w,
+                        float sigma, void* stream) {
+  mass_fwd_kernel<false><<<n_blocks, tile * tile, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<const int*>(counts),
+      static_cast<float*>(mass), nullptr, nullptr, t_rows, m, tile, tiles_w,
+      sigma, 0.0f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 launch, and K4b's (the same function on K4a's rows).  Returns
+// cudaGetLastError() after the launch (0 = launched).
 int dynhor_sil_bwd(const void* rows, const void* counts, const void* g,
                    void* dxy, int n_blocks, int t_rows, int m, int tile,
                    int tiles_w, float sigma, void* stream) {

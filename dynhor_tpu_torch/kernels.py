@@ -29,7 +29,7 @@ _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)  # a host array
 # Source name -> (its own nvcc flags, {C entry point: argtypes}); every entry
 # returns an int, cudaGetLastError() after its launch.
@@ -41,6 +41,7 @@ SOURCES = {
         "dynhor_fused_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
         "dynhor_sil_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "dynhor_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "dynhor_sil_mass_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     }),
     # The attention kernels make no hard decision and keep nvcc's default.
     "flash_attention": (list(_FLAGS), {
@@ -48,6 +49,11 @@ SOURCES = {
         "dynhor_flash_delta": [_P, _P, _P, _I, _I, _I, _STRIDES, _P],
         "dynhor_flash_bwd_dkv": [_P] * 8 + [_I, _I, _I, _F, _STRIDES, _P],
         "dynhor_flash_bwd_dq": [_P] * 7 + [_I, _I, _I, _F, _STRIDES, _P],
+    }),
+    # Loads and atomic adds only: nvcc's default.
+    "gather_probe": (list(_FLAGS), {
+        "dynhor_take_along_axis": [_P, _P, _P, _L, _I, _L, _L, _L, _L, _I, _P],
+        "dynhor_scatter_add_axis0": [_P, _P, _P, _L, _I, _L, _L, _P],
     }),
 }
 
@@ -173,8 +179,8 @@ def fused_fwd(rows, counts, tile, tiles_w, sigma, znear):
 fused_fwd.launches = 0
 
 
-def sil_bwd(rows, counts, g, tile, tiles_w, sigma):
-    """K2 on the card: see ops/raster_fused.tile_mass_grad_plain."""
+def _sil_bwd(wrapper, rows, counts, g, tile, tiles_w, sigma):
+    """K2's kernel, counted on ``wrapper``: (B, T, M, 6) d(mass)/d(slot xy)."""
     b, t, m, stream = _launch_args(rows, counts, tile)
     _check("g", g, torch.float32, (b, t, tile * tile))
     dxy = torch.empty((b, t, m, 6), dtype=torch.float32, device=rows.device)
@@ -186,12 +192,47 @@ def sil_bwd(rows, counts, g, tile, tiles_w, sigma):
             b * t, t, m, tile, tiles_w, sigma, stream,
         )
     if err:
-        raise RuntimeError(f"sil_bwd kernel launch failed: CUDA error {err}")
-    sil_bwd.launches += 1
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return dxy
 
 
+def sil_bwd(rows, counts, g, tile, tiles_w, sigma):
+    """K2 on the card: see ops/raster_fused.tile_mass_grad_plain."""
+    return _sil_bwd(sil_bwd, rows, counts, g, tile, tiles_w, sigma)
+
+
 sil_bwd.launches = 0
+
+
+def sil_mass_fwd(rows, counts, tile, tiles_w, sigma):
+    """K4a on the card: see ops/silhouette_kernel.tile_mass_plain.
+    Returns mass (B, T, tile * tile) f32."""
+    b, t, m, stream = _launch_args(rows, counts, tile)
+    mass = torch.empty((b, t, tile * tile), dtype=torch.float32, device=rows.device)
+    if b * t == 0:
+        return mass
+    with torch.cuda.device(rows.device):
+        err = _lib("raster_fused").dynhor_sil_mass_fwd(
+            rows.data_ptr(), counts.data_ptr(), mass.data_ptr(), b * t, t, m, tile,
+            tiles_w, sigma, stream,
+        )
+    if err:
+        raise RuntimeError(f"sil_mass_fwd kernel launch failed: CUDA error {err}")
+    sil_mass_fwd.launches += 1
+    return mass
+
+
+sil_mass_fwd.launches = 0
+
+
+def sil_mass_bwd(rows, counts, g, tile, tiles_w, sigma):
+    """K4b on the card: K2's kernel on K4a's rows (the same function, see
+    csrc/raster_fused.cu), with a launch count of its own."""
+    return _sil_bwd(sil_mass_bwd, rows, counts, g, tile, tiles_w, sigma)
+
+
+sil_mass_bwd.launches = 0
 
 
 def depth_fwd(rows, counts, tile, tiles_w, znear):
@@ -361,3 +402,81 @@ def flash_bwd_dq(q, k, v, d_o, lse, delta, sm_scale: float):
 
 
 flash_bwd_dq.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: the probe's gathers and scatter-add (csrc/gather_probe.cu), f32 values
+# and int32 indices.  Indices must lie in range; they are not checked, so
+# that no device sync enters the wrappers.
+# --------------------------------------------------------------------------
+
+
+def _check_index(idx: torch.Tensor, device: torch.device) -> tuple[int, int]:
+    """An (N, L) int32 CUDA view with non-negative strides (0 allowed: an
+    expanded index); returns (N, L)."""
+    if not idx.is_cuda or idx.device != device:
+        raise ValueError(f"idx must be a CUDA tensor on {device}, got {idx.device}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"idx must be torch.int32, got {idx.dtype}")
+    if idx.dim() != 2 or min(idx.stride()) < 0:
+        raise ValueError(f"idx must be 2-D with non-negative strides, got {tuple(idx.stride())}")
+    return idx.shape
+
+
+def take_along_axis(src: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """K6 gather on the card: see ops/gather.take_along_axis_plain.
+    src (R, C) f32 with any strides; idx (N, L) int32, any non-negative
+    strides.  Returns a contiguous (N, L) f32 tensor."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if not src.is_cuda or src.dtype != torch.float32 or src.dim() != 2:
+        raise ValueError(
+            f"src must be a 2-D float32 CUDA tensor, got {src.dtype} "
+            f"{tuple(src.shape)} on {src.device}"
+        )
+    n, l = _check_index(idx, src.device)
+    if (axis == 0 and l > src.shape[1]) or (axis == 1 and n > src.shape[0]):
+        raise ValueError(
+            f"idx {tuple(idx.shape)} does not fit src {tuple(src.shape)} along axis {1 - axis}"
+        )
+    out = torch.empty((n, l), dtype=torch.float32, device=src.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(src.device):
+        err = _lib("gather_probe").dynhor_take_along_axis(
+            src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, l, src.stride(0),
+            src.stride(1), idx.stride(0), idx.stride(1), axis,
+            torch.cuda.current_stream(src.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"take_along_axis kernel launch failed: CUDA error {err}")
+    take_along_axis.launches += 1
+    return out
+
+
+take_along_axis.launches = 0
+
+
+def scatter_add_axis0(g: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K6 scatter-add on the card: see ops/gather.scatter_add_axis0_plain.
+    g (N, L) f32 contiguous; idx (N, L) int32, any non-negative strides.
+    Returns (n_rows, L) f32 with dst[idx[i, l], l] += g[i, l]."""
+    if not g.is_cuda:
+        raise ValueError(f"g must be a CUDA tensor, got device {g.device}")
+    n, l = _check_index(idx, g.device)
+    _check("g", g, torch.float32, (n, l))
+    dst = torch.zeros((n_rows, l), dtype=torch.float32, device=g.device)
+    if g.numel() == 0:
+        return dst
+    with torch.cuda.device(g.device):
+        err = _lib("gather_probe").dynhor_scatter_add_axis0(
+            g.data_ptr(), idx.data_ptr(), dst.data_ptr(), n, l, idx.stride(0),
+            idx.stride(1), torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"scatter_add_axis0 kernel launch failed: CUDA error {err}")
+    scatter_add_axis0.launches += 1
+    return dst
+
+
+scatter_add_axis0.launches = 0

@@ -39,7 +39,7 @@ import torch
 
 from .. import kernels
 from .rasterize import Fragments, barycentrics_from_rows, pixel_centers
-from .rasterize_tiled import bin_faces, bin_faces_and_inverse
+from .rasterize_tiled import _detile, bin_faces, bin_faces_and_inverse
 
 Tensor = torch.Tensor
 
@@ -198,9 +198,10 @@ def tile_mass_grad_plain(
     b, t_rows, m, _ = rows.shape
     px, py = _tile_pixels(t_rows, tile, tiles_w, rows.device)
     gp = g[..., None]  # (B, T, P, 1)
-    out = []
     slot = torch.arange(m, device=rows.device)
-    for s in range(0, m, _PLAIN_CHUNK):
+    m_used = int(counts.max()) if counts.numel() else 0  # slots past it get 0
+    out = []
+    for s in range(0, m_used, _PLAIN_CHUNK):
         r = rows[:, :, None, s : s + _PLAIN_CHUNK]
         keep = (slot[s : s + _PLAIN_CHUNK] < counts[..., None])[:, :, None, :]
         _, _, sign, segs, d2, visible = _pair_geometry(r, px, py)
@@ -228,7 +229,8 @@ def tile_mass_grad_plain(
             [a01x + b20x, a01y + b20y, b01x + a12x, b01y + a12y, b12x + a20x, b12y + a20y],
             dim=-1,
         )  # (B, T, P, C, 6)
-        out.append(per_pixel.sum(2))
+        out.append(per_pixel.sum(2)[:, :, : m_used - s])
+    out.append(rows.new_zeros((b, t_rows, m - m_used, 6)))
     return torch.cat(out, dim=2).float()
 
 
@@ -352,14 +354,6 @@ class _FusedTiles(torch.autograd.Function):
         d_xy = torch.where(inv_valid[..., None], picked, 0.0).sum(2)  # (B, F, 6)
         d_rows = torch.cat([d_xy, d_xy.new_zeros((b, n_faces, _ROW - 6))], dim=-1)
         return (d_rows,) + (None,) * 9
-
-
-def _detile(x: Tensor, th: int, tw: int, tile: int, h: int, w: int) -> Tensor:
-    """(B, T, tile*tile, ...) row-major tiles -> (B, H, W, ...)."""
-    b = x.shape[0]
-    rest = x.shape[3:]
-    x = x.reshape((b, th, tw, tile, tile) + rest).transpose(2, 3)
-    return x.reshape((b, th * tile, tw * tile) + rest)[:, :h, :w]
 
 
 def _scatter_rows(dense: Tensor, act_ids: Tensor, rows: Tensor) -> Tensor:

@@ -1,10 +1,17 @@
-"""Tile binning for the fused raster (PyTorch, batched over frames).
+"""Tile-binned rasterization (PyTorch, batched over frames).
 
-Port of the binning half of ``dynhor_tpu/ops/rasterize_tiled.py``: faces
-are assigned to the TxT pixel tiles their (margin-expanded) screen bbox
-overlaps, with a per-tile face cap that callers count per scene
-(``max_tile_load``).  A tile that overflows the cap keeps its LOWEST face
-ids, and the overflow count is returned so callers can surface it.
+Port of ``dynhor_tpu/ops/rasterize_tiled.py``: faces are assigned to the
+TxT pixel tiles their (margin-expanded) screen bbox overlaps, with a
+per-tile face cap that callers count per scene (``max_tile_load``).  A tile
+that overflows the cap keeps its LOWEST face ids, and the overflow count is
+returned so callers can surface it.
+
+The binning serves the fused raster (ops/raster_fused.py), the separate
+soft silhouette (ops/silhouette_kernel.py) and the two plain tiled
+rasterizers here, ``soft_silhouette_tiled`` and ``rasterize_tiled`` (the
+JAX package's non-TPU path), which rasterize ``tile_chunk`` tiles at a time
+against their binned faces: each chunk streams (B, chunk, tile², cap)
+temporaries, about 0.74 GB each at 8 frames, 64 tiles and cap 1408.
 
 The JAX package evaluates two lookups as one-hot reductions over the tile
 axis because element gathers were slow on its TPU; here they are plain
@@ -15,6 +22,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from .rasterize import Fragments, barycentrics_at, pixel_centers
+from .silhouette import face_pixel_bary, softplus_mass
 
 Tensor = torch.Tensor
 
@@ -197,3 +208,124 @@ def max_active_tiles_load(
     fused raster's ``max_active_tiles`` from it."""
     loads = _tile_loads(verts_pix, faces, image_size, tile, margin)
     return (loads > 0).sum(-1).to(torch.int32)
+
+
+def _tile_grid(h: int, w: int, tile: int, device):
+    """In-tile pixel centers (P,) and each tile's origin (T,), row-major."""
+    th, tw = _grid((h, w), tile)
+    i = torch.arange(tile, dtype=torch.float32, device=device) + 0.5
+    py = i[:, None].expand(tile, tile).reshape(-1)
+    px = i[None, :].expand(tile, tile).reshape(-1)
+    t = torch.arange(th * tw, dtype=torch.float32, device=device)
+    oy = torch.div(t, tw, rounding_mode="floor") * tile
+    ox = torch.remainder(t, tw) * tile
+    return px, py, ox, oy, th, tw
+
+
+def _chunk_faces(fv_all: Tensor, idx: Tensor) -> Tensor:
+    """(B, C, M, 3, 3) vertices of the binned faces ``idx`` (B, C, M)."""
+    b = fv_all.shape[0]
+    return fv_all[torch.arange(b, device=idx.device)[:, None, None], idx]
+
+
+def _detile(x: Tensor, th: int, tw: int, tile: int, h: int, w: int) -> Tensor:
+    """(B, T, tile*tile, ...) row-major tiles -> (B, H, W, ...)."""
+    b = x.shape[0]
+    rest = x.shape[3:]
+    x = x.reshape((b, th, tw, tile, tile) + rest).transpose(2, 3)
+    return x.reshape((b, th * tile, tw * tile) + rest)[:, :h, :w]
+
+
+def soft_silhouette_tiled(
+    verts_pix: Tensor,
+    faces: Tensor,
+    image_size: tuple[int, int],
+    sigma: float = 0.25,
+    tile: int = 16,
+    max_faces: int = 640,
+    tile_chunk: int = 64,
+    znear: float = 1e-2,
+) -> Tensor:
+    """Tile-binned soft silhouette of B frames; the semantics of
+    ``ops.silhouette.soft_silhouette``, binned at margin 6 sigma + 1.
+
+    Plain PyTorch, ``tile_chunk`` tiles at a time, each chunk recomputed in
+    the backward (``torch.utils.checkpoint``, as the JAX package's
+    ``jax.checkpoint``).  Faces dropped by the per-tile cap are dropped
+    silently, as in the JAX package.
+
+    Args:
+      verts_pix: (B, V, 3) projected (u, v, z); gradients flow to these.
+      faces: (F, 3).
+
+    Returns: (B, H, W) coverage in [0, 1].
+    """
+    h, w = image_size
+    bins = bin_faces(verts_pix, faces, image_size, tile, max_faces, margin=6.0 * sigma + 1.0)
+    px, py, ox, oy, th, tw = _tile_grid(h, w, tile, verts_pix.device)
+    fv_all = verts_pix[:, faces.long()]  # (B, F, 3, 3)
+    chunks = []
+    for c in range(0, th * tw, tile_chunk):
+        fv = _chunk_faces(fv_all, bins.indices[:, c : c + tile_chunk])
+        pxx = (ox[c : c + tile_chunk, None] + px[None, :])[..., None]  # (C, P, 1)
+        pyy = (oy[c : c + tile_chunk, None] + py[None, :])[..., None]
+        chunks.append(checkpoint(
+            softplus_mass, fv, bins.valid[:, c : c + tile_chunk], pxx, pyy, sigma, znear,
+            use_reentrant=False,
+        ))
+    mass = torch.cat(chunks, dim=1)  # (B, T, P)
+    return _detile(1.0 - torch.exp(-mass), th, tw, tile, h, w)
+
+
+def rasterize_tiled(
+    verts_pix: Tensor,
+    faces: Tensor,
+    image_size: tuple[int, int],
+    tile: int = 16,
+    max_faces: int = 640,
+    tile_chunk: int = 64,
+    znear: float = 1e-2,
+) -> Fragments:
+    """Tile-binned hard z-buffer raster of B frames; the semantics of
+    ``ops.rasterize.rasterize``, binned at margin 0.
+
+    Per pixel the min depth over the tile's covering faces with z > znear
+    wins; on equal depths the first (lowest) slot wins; a pixel no face
+    covers has depth inf, so pix_to_face -1 and zbuf -1.  The hard decisions
+    are made without autograd, ``tile_chunk`` tiles at a time; the
+    barycentrics and the depth of the winning face are then evaluated once
+    per pixel, in the order of operations of the tile pass, so their values
+    equal it and their gradients are those of the depth the pass selected.
+
+    Returns: Fragments with (B, H, W) maps.
+    """
+    b = verts_pix.shape[0]
+    h, w = image_size
+    bins = bin_faces(verts_pix, faces, image_size, tile, max_faces, margin=0.0)
+    px, py, ox, oy, th, tw = _tile_grid(h, w, tile, verts_pix.device)
+    fids = []
+    with torch.no_grad():
+        fv_all = verts_pix[:, faces.long()]
+        for c in range(0, th * tw, tile_chunk):
+            idx = bins.indices[:, c : c + tile_chunk]
+            gx = (ox[c : c + tile_chunk, None] + px[None, :])[..., None]  # (C, P, 1)
+            gy = (oy[c : c + tile_chunk, None] + py[None, :])[..., None]
+            verts, (w0, w1, w2), inside, _ = face_pixel_bary(_chunk_faces(fv_all, idx), gx, gy)
+            z = w0 * verts[0][2] + w1 * verts[1][2] + w2 * verts[2][2]
+            ok = inside & (z > znear) & bins.valid[:, c : c + tile_chunk, None, :]
+            zmin, j = torch.where(ok, z, float("inf")).min(dim=-1)  # first minimal slot
+            fid = torch.gather(idx, 2, j)
+            fids.append(torch.where(torch.isfinite(zmin), fid, -1))
+    pix_to_face = _detile(torch.cat(fids, dim=1), th, tw, tile, h, w).to(torch.int32)
+    gx, gy = pixel_centers(h, w, verts_pix.device)
+    flat = pix_to_face.reshape(b, -1)
+    bary = barycentrics_at(verts_pix, faces, flat, gx, gy)  # (B, P, 3)
+    fz = verts_pix[..., 2][:, faces.long()]  # (B, F, 3)
+    zf = torch.gather(fz, 1, flat.long().clamp_min(0)[..., None].expand(-1, -1, 3))
+    z = bary[..., 0] * zf[..., 0] + bary[..., 1] * zf[..., 1] + bary[..., 2] * zf[..., 2]
+    hit = flat >= 0
+    return Fragments(
+        pix_to_face=pix_to_face,
+        bary=torch.where(hit[..., None], bary, 0.0).reshape(b, h, w, 3),
+        zbuf=torch.where(hit, z, -1.0).reshape(b, h, w),
+    )

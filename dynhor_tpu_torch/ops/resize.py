@@ -2,8 +2,9 @@
 
 Port of ``dynhor_tpu/ops/resize.py``: the bicubic resampling matrices are
 numpy copies (built once per static shape); a resize is two contractions
-``W_y @ img @ W_x^T``.  ``resize_nearest`` is the mask downsampling of the
-semantic loss.
+``W_y @ img @ W_x^T``.  ``resize_bicubic_align_corners`` is the render's
+upsampling to the ViT's edge in the fine-step profiler; ``resize_nearest`` is
+the mask downsampling of the semantic loss.
 """
 from __future__ import annotations
 
@@ -57,6 +58,16 @@ def _bicubic_matrix_halfpix(in_size: int, out_size: int) -> np.ndarray:
         return np.eye(in_size, dtype=np.float32)
     src = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
     return _resampling_matrix(src, in_size)
+
+
+def resize_bicubic_align_corners(images: Tensor, out_h: int, out_w: int) -> Tensor:
+    """Bicubic resize, align_corners=True (torch parity);
+    (..., H, W) -> (..., out_h, out_w) float32."""
+    h, w = images.shape[-2], images.shape[-1]
+    wy = torch.as_tensor(_bicubic_matrix_ac(h, out_h), device=images.device)
+    wx = torch.as_tensor(_bicubic_matrix_ac(w, out_w), device=images.device)
+    x = torch.einsum("oh,...hw->...ow", wy, images.float())
+    return torch.einsum("pw,...hw->...hp", wx, x)
 
 
 def resize_bicubic_halfpix(images: Tensor, out_h: int, out_w: int) -> Tensor:

@@ -11,9 +11,10 @@ reference: ObjTracker/pose_initializtion.py — the ObjTracker module
 Every step handles ALL frames at once: the frame axis is a batch axis of
 every tensor, so one step runs one fused-raster kernel launch (K1), one ViT
 forward/backward over B x 1370 tokens, and one K2 launch in the backward.
-The silhouette is always the fused raster (the JAX package's "pallas"
-path): its CUDA kernels for tensors on the card, their plain PyTorch
-versions for tensors on the CPU.
+The silhouette is ``RefineConfig.silhouette_impl``: "pallas" (the default
+through "auto") is the fused raster, its CUDA kernels for tensors on the
+card and their plain PyTorch versions for tensors on the CPU; "tiled" and
+"dense" are the JAX package's plain rasterizers.
 """
 from __future__ import annotations
 
@@ -25,8 +26,10 @@ import torch
 from ..models import dino as dino_mod
 from ..ops import rasterize as rz
 from ..ops.raster_fused import rasterize_silhouette
+from ..ops.rasterize_tiled import rasterize_tiled, soft_silhouette_tiled
 from ..ops.resize import resize_nearest
 from ..ops.shading import fine_lights, phong_shade, phong_shade_tiles
+from ..ops.silhouette import soft_silhouette
 from ..utils import camera as cam
 from ..utils import geometry as G
 from ..utils.device import resolve_device
@@ -45,12 +48,23 @@ class RefineConfig:
     far: float = 100.0  # neural_renderer Renderer default far plane
     mode: str = "fine"  # "fine" | "coarse" (pose_initializtion.py:349-352)
     sigma: float = 0.25  # soft-silhouette edge band (ours; nr is hard)
+    face_chunk: int = 512  # faces per loop step of the dense rasterizers
+    # Tile-binned rasterization; False puts the "dense" path's hard raster
+    # on the dense ops/rasterize.rasterize.
+    use_tiled: bool = True
     tile_size: int = 16
     # Per-tile face cap and active-tile cap of the fused raster, counted
     # per scene (ops/rasterize_tiled.max_tile_load / max_active_tiles_load);
     # max_active_tiles None = dense over all tiles.
     max_faces_per_tile: int = 640
     max_active_tiles: int | None = None
+    # Silhouette: "pallas" = the fused raster (K1/K2), "tiled" =
+    # rasterize_tiled + soft_silhouette_tiled, "dense" = the hard raster
+    # (tiled if use_tiled) + the dense soft_silhouette.  "auto" is "pallas"
+    # on every device when use_tiled, else "dense": the fused raster's CPU
+    # path is its plain versions, where the JAX package's CPU "auto" picks
+    # "tiled".
+    silhouette_impl: str = "auto"
     # ViT compute dtype of the sem loss; the backbone is frozen and only the
     # direction of the image gradient matters.
     dino_dtype: str = "bfloat16"
@@ -92,6 +106,46 @@ def offscreen_penalty(verts_cam: Tensor, K01: Tensor, far: float) -> Tensor:
     return lower_right + upper_left + behind + too_far
 
 
+def resolve_silhouette_impl(impl: str, use_tiled: bool) -> str:
+    """The silhouette implementation that ``impl`` names ("auto" resolves
+    to "pallas" when ``use_tiled``, else "dense")."""
+    if impl == "auto":
+        return "pallas" if use_tiled else "dense"
+    if impl not in ("pallas", "tiled", "dense"):
+        raise ValueError(f"silhouette_impl must be auto, pallas, tiled or dense, got {impl!r}")
+    return impl
+
+
+def _silhouettes(vp: Tensor, faces: Tensor, cfg: RefineConfig):
+    """(Fragments, soft (B, S, S), overflow (B,) int32, CompactTiles or
+    None) of the configured silhouette.  The fine mode with an active-tile
+    cap also takes the fused raster's compacted tiles, so Phong shading
+    runs on active tiles only; the plain paths report no overflow."""
+    s = cfg.crop_size
+    impl = resolve_silhouette_impl(cfg.silhouette_impl, cfg.use_tiled)
+    if impl == "pallas":
+        want_compact = cfg.mode == "fine" and cfg.max_active_tiles is not None
+        out = rasterize_silhouette(
+            vp, faces, (s, s), sigma=cfg.sigma, tile=cfg.tile_size,
+            max_faces=cfg.max_faces_per_tile, max_active_tiles=cfg.max_active_tiles,
+            return_compact=want_compact,
+        )
+        return out[0], out[1], out[2], out[3] if want_compact else None
+    if impl == "tiled" or cfg.use_tiled:
+        frag = rasterize_tiled(vp, faces, (s, s), tile=cfg.tile_size, max_faces=cfg.max_faces_per_tile)
+    else:
+        frag = rz.rasterize(vp, faces, (s, s), face_chunk=cfg.face_chunk)
+    if impl == "tiled":
+        soft = soft_silhouette_tiled(
+            vp, faces, (s, s), sigma=cfg.sigma, tile=cfg.tile_size,
+            max_faces=cfg.max_faces_per_tile,
+        )
+    else:
+        soft = soft_silhouette(vp, faces, (s, s), sigma=cfg.sigma, face_chunk=cfg.face_chunk)
+    overflow = torch.zeros((vp.shape[0],), dtype=torch.int32, device=vp.device)
+    return frag, soft, overflow, None
+
+
 def _frame_loss(
     rot6d: Tensor,
     trans: Tensor,
@@ -113,16 +167,7 @@ def _frame_loss(
     vp = rz.project_perspective(verts_t, targets.K_rois)
     # The soft silhouette is the objective (a consistent value/gradient
     # pair); the reported IoU uses the hard mask (reference loss parity).
-    # The fine mode also takes the compacted raster, so Phong shading runs
-    # on active tiles only.
-    want_compact = cfg.mode == "fine" and cfg.max_active_tiles is not None
-    out = rasterize_silhouette(
-        vp, mesh.faces, (s, s), sigma=cfg.sigma, tile=cfg.tile_size,
-        max_faces=cfg.max_faces_per_tile, max_active_tiles=cfg.max_active_tiles,
-        return_compact=want_compact,
-    )
-    frag, soft, overflow = out[:3]
-    compact = out[3] if want_compact else None
+    frag, soft, overflow, compact = _silhouettes(vp, mesh.faces, cfg)
     hard = (frag.pix_to_face >= 0).float()
     loss = 1.0 - batch_mask_iou(keep_mask * soft, ref_mask)
     iou = batch_mask_iou(keep_mask * hard, ref_mask)

@@ -12,7 +12,10 @@ and atol 1e-5 x max (f32 sums in another order).  K3's depths within
 the card and the CPU within 1e-5 (f32 ViT, TF32 off).  K5's o, dq, dk and dv
 within 2^-7 of the largest value (one bf16 step where the kernel and the
 plain version land on either side of a rounding boundary), its f32
-log-sum-exp and delta within 1e-5 of theirs.
+log-sum-exp and delta within 1e-5 of theirs.  K4a as K1 and K4b as K2
+(K4b is K2's kernel on K4a's rows), the whole soft_silhouette_kernel card
+vs CPU the same.  K6's gathers exactly, its scatter-adds within rtol 1e-5
+and atol 1e-5 (atomic f32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from dynhor_tpu_torch import kernels
 from dynhor_tpu_torch.ops import flash_attention as FA
 from dynhor_tpu_torch.ops import raster_fused as TF
 from dynhor_tpu_torch.ops import rasterize as TZ
+from dynhor_tpu_torch.ops import silhouette_kernel as TK
 from dynhor_tpu_torch.tracker import priors as TP
 from dynhor_tpu_torch.tracker import refine as TR
 from dynhor_tpu_torch.utils import geometry as TG
@@ -260,3 +264,72 @@ def test_vit_runs_through_flash_attention(cuda):
             tok = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(attn_impl=impl, **kw))
         assert kernels.flash_fwd.launches - before == 2
         assert float((tok.float() - ref).abs().max()) <= 2.0**-5 * float(ref.abs().max())
+
+
+def test_silhouette_kernels_match_plain_versions(shoes):
+    vp, faces = shoes
+    rows, counts, tw = TK.kernel_inputs(vp, faces, (S, S), max_faces=faces.shape[0])
+    assert int(counts.sum()) > 0
+    mass = kernels.sil_mass_fwd(rows, counts, 16, tw, 0.25)
+    mass_p = TK.tile_mass_plain(rows, counts, 16, tw, 0.25)
+    torch.testing.assert_close(torch.exp(-mass), torch.exp(-mass_p), rtol=0, atol=1e-5)
+    g = torch.randn(mass.shape, generator=torch.Generator().manual_seed(3)).to(vp.device)
+    k2 = kernels.sil_bwd.launches
+    dxy = kernels.sil_mass_bwd(rows, counts, g, 16, tw, 0.25)
+    assert kernels.sil_bwd.launches == k2  # K4b keeps a count of its own
+    dxy_p = TF.tile_mass_grad_plain(rows, counts, g, 16, tw, 0.25)
+    torch.testing.assert_close(dxy, dxy_p, rtol=1e-4, atol=1e-5 * float(dxy_p.abs().max()))
+
+
+def test_soft_silhouette_kernel_autograd_on_the_card(shoes):
+    vp, faces = shoes
+    w = torch.randn((1, S, S), generator=torch.Generator().manual_seed(4))
+    before = (kernels.sil_mass_fwd.launches, kernels.sil_mass_bwd.launches)
+
+    from dynhor_tpu_torch.ops.rasterize_tiled import max_tile_load
+
+    cap = int(max_tile_load(vp, faces, (S, S), margin=6.0 * 0.25 + 1.0).max())
+
+    def run(v, f):
+        v = v.detach().clone().requires_grad_(True)
+        sil = TK.soft_silhouette_kernel(v, f, (S, S), max_faces=cap)
+        (sil * w.to(v.device)).sum().backward()
+        return sil.detach().cpu(), v.grad.cpu()
+
+    sil, grad = run(vp, faces)
+    assert (kernels.sil_mass_fwd.launches - before[0], kernels.sil_mass_bwd.launches - before[1]) == (1, 1)
+    sil_c, grad_c = run(vp.cpu(), faces.cpu())
+    torch.testing.assert_close(sil, sil_c, rtol=0, atol=1e-5)
+    torch.testing.assert_close(grad, grad_c, rtol=1e-4, atol=1e-5 * float(grad_c.abs().max()))
+
+
+def test_joint_optimize_launches_k1_k2_once_per_step(cuda):
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+
+    gen = torch.Generator().manual_seed(5)
+    verts = torch.rand((8, 3), generator=gen) - 0.5
+    faces = torch.tensor([[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1]])
+    masks = torch.zeros((3, 64, 64))
+    masks[:, 20:44, 20:44] = 1.0
+    K = torch.tensor([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1.0]]).expand(3, 3, 3)
+    trans = torch.tensor([[0.0, 0.0, 2.0], [0.05, 0.0, 2.0], [0.1, 0.0, 2.0]])
+    k1, k2 = kernels.fused_fwd.launches, kernels.sil_bwd.launches
+    res = TJ.joint_optimize(
+        verts, faces, torch.eye(3).expand(3, 3, 3), trans, K, masks,
+        TJ.JointConfig(num_iterations=5, lr=1e-3, crop_size=64), iters_per_launch=2, device=cuda,
+    )
+    assert kernels.fused_fwd.launches - k1 == 5 and kernels.sil_bwd.launches - k2 == 5
+    assert res.rot6d.is_cuda and all(len(v) == 5 for v in res.history.values())
+    assert bool(torch.isfinite(res.history["loss"]).all())
+
+
+@pytest.mark.parametrize("key", ["A", "B", "C", "D", "E512", "E8192", "F", "G", "H"])
+def test_gather_forms_match_plain_versions(cuda, key):
+    from dynhor_tpu_torch.tools import probe_gather as PG
+
+    form = {f["key"]: f for f in PG.make_forms(cuda)}[key]
+    counter = kernels.take_along_axis if form["op"] == "take" else kernels.scatter_add_axis0
+    before = counter.launches
+    got = PG.apply(form)
+    assert counter.launches == before + 1 and got.is_cuda
+    assert PG.agrees(form, got, PG.apply(form, plain=True))

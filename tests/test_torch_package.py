@@ -54,7 +54,7 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
         )
 
 
-@pytest.mark.parametrize("which", ["fused_fwd", "sil_bwd", "depth_fwd"])
+@pytest.mark.parametrize("which", ["fused_fwd", "sil_bwd", "depth_fwd", "sil_mass_fwd", "sil_mass_bwd"])
 def test_kernel_wrappers_refuse_cpu_tensors(which):
     rows = torch.zeros((1, 1, 128, 16))
     counts = torch.zeros((1, 1), dtype=torch.int32)
@@ -62,11 +62,25 @@ def test_kernel_wrappers_refuse_cpu_tensors(which):
     with pytest.raises(ValueError, match="CUDA tensor"):
         if which == "fused_fwd":
             kernels.fused_fwd(rows, counts, 16, 1, 0.25, 1e-2)
-        elif which == "sil_bwd":
-            kernels.sil_bwd(rows, counts, torch.zeros((1, 1, 256)), 16, 1, 0.25)
+        elif which in ("sil_bwd", "sil_mass_bwd"):
+            getattr(kernels, which)(rows, counts, torch.zeros((1, 1, 256)), 16, 1, 0.25)
+        elif which == "sil_mass_fwd":
+            kernels.sil_mass_fwd(rows, counts, 16, 1, 0.25)
         else:
             kernels.depth_fwd(rows, counts, 16, 1, 1e-2)
     assert getattr(kernels, which).launches == before
+
+
+def test_joint_optimize_without_device_needs_a_card(monkeypatch):
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TJ.joint_optimize(
+            np.zeros((3, 3), np.float32), np.array([[0, 1, 2]]), np.eye(3, dtype=np.float32)[None],
+            np.zeros((1, 3), np.float32), np.eye(3, dtype=np.float32)[None],
+            np.zeros((1, 32, 32), np.float32), TJ.JointConfig(num_iterations=1, crop_size=32),
+        )
 
 
 def test_prior_entry_points_without_device_need_a_card(monkeypatch):

@@ -1,6 +1,7 @@
 """The slice: the port's ``refine_poses`` vs the JAX package's, on the box
 mesh of tests/test_refine_jointopt.py at 64², 3 Adam steps, with the JAX
-side on its Pallas fused raster (interpret mode) and an f32 ViT.  Losses,
+side on its Pallas fused raster (interpret mode; or both sides on the plain
+"tiled" or "dense" silhouette) and an f32 ViT.  Losses,
 IoUs, rot6d and trans agree within 1e-4 after every step; the fine mode also
 with the port's ``attn_impl="flash"`` (the flash attention's plain versions
 on the CPU) against the same JAX trajectory."""
@@ -27,13 +28,16 @@ TINY = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, pos_grid=4, smalle
 
 
 # Fine mode with active-tile compaction (and Phong shading on active tiles
-# only); coarse mode dense over all tiles.
+# only); coarse mode dense over all tiles; coarse mode on the plain tiled
+# and dense silhouettes (silhouette_impl passed to both packages).
 @pytest.mark.parametrize(
-    "mode,max_active_tiles,attn_impl",
-    [("fine", 12, "xla"), ("coarse", None, "xla"), ("fine", 12, "flash")],
-    ids=["fine-12", "coarse-None", "fine-12-flash"],
+    "mode,max_active_tiles,attn_impl,impl",
+    [("fine", 12, "xla", "pallas"), ("coarse", None, "xla", "pallas"),
+     ("fine", 12, "flash", "pallas"), ("coarse", None, "xla", "tiled"),
+     ("coarse", None, "xla", "dense")],
+    ids=["fine-12", "coarse-None", "fine-12-flash", "coarse-tiled", "coarse-dense"],
 )
-def test_refine_trajectory_matches(mode, max_active_tiles, attn_impl):
+def test_refine_trajectory_matches(mode, max_active_tiles, attn_impl, impl):
     mesh = _mesh()
     dcfg_j = JD.DinoConfig(**TINY)
     dparams = JD.init_params(jax.random.PRNGKey(0), dcfg_j)
@@ -48,8 +52,8 @@ def test_refine_trajectory_matches(mode, max_active_tiles, attn_impl):
     t0 = np.stack([t_true + [0.02, -0.01, 0.05], t_true + 0.05]).astype(np.float32)
 
     cfg_j = JR.RefineConfig(
-        num_iterations=1, lr=0.01, crop_size=SIZE, mode=mode, silhouette_impl="pallas",
-        dino_dtype="float32", max_active_tiles=max_active_tiles,
+        num_iterations=1, lr=0.01, crop_size=SIZE, mode=mode, silhouette_impl=impl,
+        dino_dtype="float32", max_active_tiles=max_active_tiles, face_chunk=12,
     )
     # One step per launch, the Adam state carried: the JAX side reports
     # after every step.
@@ -67,7 +71,7 @@ def test_refine_trajectory_matches(mode, max_active_tiles, attn_impl):
     params_t = TD.params_from_jax(jax.tree.map(np.asarray, dparams))
     cfg_t = TR.RefineConfig(
         num_iterations=1, lr=0.01, crop_size=SIZE, mode=mode, dino_dtype="float32",
-        max_active_tiles=max_active_tiles,
+        max_active_tiles=max_active_tiles, silhouette_impl=impl, face_chunk=12,
     )
     for step in range(STEPS):
         res = TR.refine_poses(
