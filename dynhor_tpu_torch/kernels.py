@@ -265,8 +265,7 @@ _FLASH_HD = 64
 
 
 def _check_heads(name: str, x: torch.Tensor, shape: tuple | None = None) -> None:
-    """A (B, H, N, 64) bf16 CUDA view whose innermost values are contiguous
-    and whose rows are 16-byte aligned; any batch, head and token strides."""
+    """A (B, H, N, 64) bf16 CUDA tensor; ``tma_layout`` checks its layout."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -276,18 +275,70 @@ def _check_heads(name: str, x: torch.Tensor, shape: tuple | None = None) -> None
         raise ValueError(f"{name} must have shape {want}, got {tuple(x.shape)}")
     if x.shape[0] > 65535 or x.shape[1] > 65535:
         raise ValueError(f"{name}: batch and heads must be at most 65535 each")
-    if x.numel() and (
-        x.stride(3) != 1 or x.data_ptr() % 16 or any(x.stride(d) % 8 for d in range(3))
-    ):
+
+
+def tma_layout(x: torch.Tensor, name: str = "x") -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """The tensor map through which the K5 kernels read a (B, H, N, 64) view
+    of 2-byte values: its dims innermost first, (64, N, H, B), and the byte
+    strides of the token, head and batch dims.  The stride of a dim of
+    extent 1 is never used; it is replaced by the span of the dims inside it.
+
+    Raises ``ValueError`` for a layout that TMA cannot read: a head dim that
+    is not contiguous, a base that is not 16-byte aligned, or a stride that is
+    not a positive multiple of 16 bytes (a broadcast's zero stride included)."""
+    shape, stride = x.shape, x.stride()
+    if len(shape) != 4 or shape[3] != _FLASH_HD or x.element_size() != 2:
         raise ValueError(
-            f"{name}: the head dim must be contiguous and every row 16-byte aligned "
-            f"(strides {x.stride()})"
+            f"{name} must be a (B, H, N, {_FLASH_HD}) tensor of 2-byte values, "
+            f"got {x.dtype} {tuple(shape)}"
         )
+    if stride[3] != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous (strides {stride})")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the base must be 16-byte aligned (address {x.data_ptr():#x})")
+    b, h, n, d = shape
+    row = 2 * d
+    sn = 2 * stride[2] if n > 1 else row
+    sh = 2 * stride[1] if h > 1 else max(row, sn * n)
+    sb = 2 * stride[0] if b > 1 else max(row, sn * n, sh * h)
+    if min(sn, sh, sb) <= 0 or (sn | sh | sb) % 16:
+        raise ValueError(
+            f"{name}: every stride must be a positive multiple of 16 bytes "
+            f"(strides {stride}, in elements of 2 bytes)"
+        )
+    return (d, n, h, b), (sn, sh, sb)
 
 
 def _strides(*tensors: torch.Tensor):
     flat = [s for x in tensors for s in x.stride()[:3]]
     return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _map_strides(inputs: dict, *outputs: torch.Tensor):
+    """The strides array of a K5 launch, (batch, head, token) in elements per
+    tensor: the inputs' as ``tma_layout`` gives them (which checks each),
+    then the outputs'."""
+    flat = []
+    for name, x in inputs.items():
+        _, (sn, sh, sb) = tma_layout(x, name)
+        flat += (sb // 2, sh // 2, sn // 2)
+    for x in outputs:
+        flat += x.stride()[:3]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+# The K5 entry points' codes above CUDA's errors (csrc/flash_attention.cu).
+_ERR_ENCODE, _ERR_NO_ENCODER, _ERR_REGISTERS = 10000, 20000, 20001
+
+
+def _flash_error(name: str, err: int) -> RuntimeError:
+    if err == _ERR_NO_ENCODER:
+        return RuntimeError(f"{name}: the CUDA driver has no cuTensorMapEncodeTiled")
+    if err == _ERR_REGISTERS:
+        return RuntimeError(f"{name}: the kernel was built with fewer registers than it hands out")
+    if err >= _ERR_ENCODE:
+        return RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - _ERR_ENCODE}")
+    return RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _heads_out(like: torch.Tensor) -> torch.Tensor:
@@ -309,15 +360,15 @@ def flash_fwd(q, k, v, sm_scale: float):
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
+    strides = _map_strides({"q": q, "k": k, "v": v}, o)
     lib = _lib("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.dynhor_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, n, sm_scale, _strides(q, k, v, o),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            b, h, n, sm_scale, strides, torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise _flash_error("flash_fwd", err)
     flash_fwd.launches += 1
     return o, lse
 
@@ -344,6 +395,8 @@ def flash_bwd_delta(o, d_o):
     delta = torch.empty((b, h, n), dtype=torch.float32, device=o.device)
     if o.numel() == 0:
         return delta
+    tma_layout(o, "o")  # the kernel reads 16-byte pieces of rows, as TMA does
+    tma_layout(d_o, "d_o")
     lib = _lib("flash_attention")
     with torch.cuda.device(o.device):
         err = lib.dynhor_flash_delta(
@@ -366,15 +419,16 @@ def flash_bwd_dkv(q, k, v, d_o, lse, delta, sm_scale: float):
     dk, dv = _heads_out(k), _heads_out(v)
     if q.numel() == 0:
         return dk, dv
+    strides = _map_strides({"q": q, "k": k, "v": v, "d_o": d_o}, dk, dv)
     lib = _lib("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.dynhor_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, sm_scale,
-            _strides(q, k, v, d_o, dk, dv), torch.cuda.current_stream(q.device).cuda_stream,
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, sm_scale, strides,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        raise _flash_error("flash_bwd_dkv", err)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -388,15 +442,16 @@ def flash_bwd_dq(q, k, v, d_o, lse, delta, sm_scale: float):
     dq = _heads_out(q)
     if q.numel() == 0:
         return dq
+    strides = _map_strides({"q": q, "k": k, "v": v, "d_o": d_o}, dq)
     lib = _lib("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.dynhor_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b, h, n, sm_scale,
-            _strides(q, k, v, d_o, dq), torch.cuda.current_stream(q.device).cuda_stream,
+            delta.data_ptr(), dq.data_ptr(), b, h, n, sm_scale, strides,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+        raise _flash_error("flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
     return dq
 

@@ -28,7 +28,7 @@ from .. import kernels
 
 Tensor = torch.Tensor
 
-PLAIN_BLOCK = 64  # keys per step of the plain versions (the kernels' tile edge)
+PLAIN_BLOCK = 128  # keys per step of the plain versions (the kernels' key tile)
 
 
 def _acc_dtype(x: Tensor) -> torch.dtype:
@@ -107,9 +107,11 @@ def flash_bwd(q, k, v, o, lse, d_o, sm_scale):
     if q.device.type == "cpu":
         delta = flash_delta_plain(o, d_o)
         return flash_bwd_plain(q, k, v, d_o, lse, delta, sm_scale)
-    if d_o.stride(-1) != 1 or d_o.data_ptr() % 16 or any(s % 8 for s in d_o.stride()[:3]):
+    try:
+        kernels.tma_layout(d_o, "d_o")
+    except ValueError:
         # A cotangent that autograd expanded or sliced (a broadcast sum's,
-        # say); the kernels read 16-byte rows, so this one is copied.
+        # say), which the kernels' tensor maps cannot read: it is copied.
         d_o = d_o.contiguous()
     delta = kernels.flash_bwd_delta(o, d_o)
     dk, dv = kernels.flash_bwd_dkv(q, k, v, d_o, lse, delta, sm_scale)

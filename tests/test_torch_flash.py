@@ -103,9 +103,10 @@ def test_plain_matches_jax_splash_kernel(monkeypatch):
     np.testing.assert_allclose(o_t, o_j, atol=2e-5)
 
 
-# N smaller than, equal to and one more than the plain versions' block, and
-# two blocks with a ragged third.
-@pytest.mark.parametrize("n", [5, FA.PLAIN_BLOCK, FA.PLAIN_BLOCK + 1, 2 * FA.PLAIN_BLOCK + 9])
+# N smaller than, equal to and one more than the plain versions' block (and
+# than half of it), and two blocks with a ragged third.
+@pytest.mark.parametrize("n", [5, 64, 65, 137, FA.PLAIN_BLOCK, FA.PLAIN_BLOCK + 1,
+                               2 * FA.PLAIN_BLOCK + 9])
 def test_plain_backward_matches_autograd_f64(n):
     """The written-out backward against autograd, in f64: through a softmax
     attention kept in f64 (1e-12), and through the port's written-out
@@ -187,3 +188,36 @@ def test_flash_wrappers_refuse_cpu_tensors(which):
         else:
             getattr(kernels, which)(x, x, x, x, s, s, 0.125)
     assert getattr(kernels, which).launches == before
+
+
+def test_tma_layout_of_the_vit_views():
+    """The tensor maps of the q, k and v views of one (B, N, 3, H, 64)
+    projection and of a (B, N, H, 64) cotangent: dims (64, N, H, B) and the
+    token, head and batch strides in bytes."""
+    b, n, h = 2, 37, 3
+    qkv = torch.zeros((b, n, 3, h, 64), dtype=torch.bfloat16)
+    row = 3 * h * 64 * 2  # bytes from one token to the next
+    for i, x in enumerate(qkv.permute(2, 0, 3, 1, 4)):
+        dims, strides = kernels.tma_layout(x)
+        assert dims == (64, n, h, b)
+        assert strides == (row, 128, n * row)
+        assert x.data_ptr() - qkv.data_ptr() == i * h * 128
+    g = torch.zeros((b, n, h * 64), dtype=torch.bfloat16).reshape(b, n, h, 64).transpose(1, 2)
+    assert kernels.tma_layout(g) == ((64, n, h, b), (h * 128, 128, n * h * 128))
+    # A dim of extent 1 takes the span of the dims inside it.
+    one = torch.zeros((1, 1, n, 64), dtype=torch.bfloat16)
+    assert kernels.tma_layout(one) == ((64, n, 1, 1), (128, n * 128, n * 128))
+
+
+@pytest.mark.parametrize("case", ["padded", "sliced", "strided-head", "broadcast"])
+def test_tma_layout_refuses_what_tma_cannot_read(case):
+    base = torch.zeros((2, 3, 9, 68), dtype=torch.bfloat16)
+    x = {
+        "padded": base[..., :64],  # rows 136 bytes apart
+        "sliced": torch.zeros((2, 3, 9, 72), dtype=torch.bfloat16)[..., 4:68],  # base + 8 bytes
+        "strided-head": torch.zeros((2, 3, 9, 128), dtype=torch.bfloat16)[..., ::2],
+        "broadcast": torch.zeros((2, 3, 1, 64), dtype=torch.bfloat16).expand(2, 3, 9, 64),
+    }[case]
+    assert x.shape == (2, 3, 9, 64)
+    with pytest.raises(ValueError):
+        kernels.tma_layout(x)
