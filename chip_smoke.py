@@ -12,7 +12,12 @@ Phases; any failure exits non-zero.
    256² crop and caps counted as ``bench.py`` counts them.  Each kernel is
    held against its plain PyTorch version on the same inputs and both are
    timed with CUDA events; the whole fused raster (forward and d(verts))
-   is also held against the plain versions on the CPU.
+   is also held against the plain versions on the CPU.  The tile counts'
+   distribution and the work items they make (K1/K2 run on a work list cut
+   by the counts) are printed.  Then K1 and K2 on rows with adversarial
+   counts (one row at the cap and the rest empty, counts at the work list's
+   chunk edges, none, equal depths in two chunks of one row, 64 frames x 80
+   rows): hard outputs exactly the plain version's, two runs bit-identical.
 2b. K3 (the prior views' depth raster) against its plain version at the
    prior path's shapes: a chunk of 25 views at window 176 and a prescreen
    chunk of 50 views at window 112, caps counted for them.
@@ -24,7 +29,9 @@ Phases; any failure exits non-zero.
    bit.  ``scaled_dot_product_attention``, forward and backward, is timed
    beside them (the port never calls it).  A "K5 bwd" row holds the whole
    backward (its three kernels) against the function's bound; each kernel
-   prints its share of its bound.
+   prints its share of its bound.  The same in f32 (the f32 kernels, within
+   1e-5; bounds at the f32 peak), at the fine step's shape and the tile
+   edges.
 2d. K4 (the separate soft silhouette) at the fine step's shapes: K4a and
    K4b (K2's kernel on K4a's rows) against their plain versions, timed
    beside their bounds; ``soft_silhouette_kernel`` forward and d(verts)
@@ -36,8 +43,10 @@ Phases; any failure exits non-zero.
    at 518², bf16, 8 frames, 10 steps, once with the written-out attention
    (``attn_impl="xla"``: no K5 launch) and once with ``attn_impl="flash"``
    (each K5 kernel once per layer and step); K1 and K2 must launch exactly
-   once per step.  Then the same entry point on a small scene, on the card
-   and on the CPU (plain versions), must agree, for both attentions.
+   once per step.  Then ``dino_dtype="float32"`` with ``"flash"`` for 2
+   steps: the f32 K5 kernels once per layer and step, the bf16 ones never.
+   Then the same entry point on a small scene, on the card and on the CPU
+   (plain versions), must agree, for both attentions and for f32 "flash".
 3b. Joint optimization at full width: ``joint_optimize`` at the pipeline's
    defaults (200 steps, lr 1e-4, smoothness weight 10, sigma 0.25) on the
    phase-2 scene from jittered inits, ``silhouette_impl="pallas"``: K1 and
@@ -53,9 +62,11 @@ Phases; any failure exits non-zero.
    ``"xla"`` no K5 launch), temporal gating, the translation init by
    autodepth, and a 2-step fine refine from those inits.  A chunk of each
    stage is then timed and profiled alone.
-4b. The prior path on a small scene, card against CPU, for both attentions.
+4b. The prior path on a small scene, card against CPU, for both attentions
+   and for f32 "flash".
 5. Every kernel of the ``kernels`` line launched on its path: K1-K3 and K5
-   in phases 3 and 4, K4a and K4b in 3c, K6 in 2e.
+   in phases 3 and 4 (the f32 K5 in phase 3's f32 run), K4a and K4b in 3c,
+   K6 in 2e.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -131,6 +142,8 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 
 K5_KEYS = ("K5 fwd", "K5 delta", "K5 dkv", "K5 dq")
+# The K5 kernels of each dtype the ViT computes in: their launch-count keys.
+K5_DTYPE_KEYS = {"bfloat16": K5_KEYS, "float32": tuple(k + " f32" for k in K5_KEYS)}
 
 
 def _counted(kernels) -> dict:
@@ -139,15 +152,23 @@ def _counted(kernels) -> dict:
         "K1": kernels.fused_fwd, "K2": kernels.sil_bwd, "K3": kernels.depth_fwd,
         "K5 fwd": kernels.flash_fwd, "K5 delta": kernels.flash_bwd_delta,
         "K5 dkv": kernels.flash_bwd_dkv, "K5 dq": kernels.flash_bwd_dq,
+        "K5 fwd f32": kernels.flash_fwd_f32, "K5 delta f32": kernels.flash_bwd_delta_f32,
+        "K5 dkv f32": kernels.flash_bwd_dkv_f32, "K5 dq f32": kernels.flash_bwd_dq_f32,
         "K4a": kernels.sil_mass_fwd, "K4b": kernels.sil_mass_bwd,
         "K6 take_along_axis": kernels.take_along_axis,
         "K6 scatter_add_axis0": kernels.scatter_add_axis0,
     }
 
 
-def check_k5_launches(launches: dict, fwd: int, bwd: int, where: str) -> None:
-    want = {"K5 fwd": fwd, "K5 delta": bwd, "K5 dkv": bwd, "K5 dq": bwd}
-    got = {k: launches[k] for k in K5_KEYS}
+def check_k5_launches(launches: dict, fwd: int, bwd: int, where: str,
+                      dtype: str = "bfloat16") -> None:
+    """fwd and bwd launches of each K5 kernel of ``dtype``, none of the
+    other dtype's."""
+    want = {}
+    for name, keys in K5_DTYPE_KEYS.items():
+        f, b = (fwd, bwd) if name == dtype else (0, 0)
+        want.update({keys[0]: f, keys[1]: b, keys[2]: b, keys[3]: b})
+    got = {k: launches[k] for k in want}
     check(got == want, f"{where}: K5 launches {got}, expected {want}")
 
 
@@ -162,6 +183,19 @@ def read_launches() -> dict:
     from dynhor_tpu_torch import kernels
 
     return {key: fn.launches for key, fn in _counted(kernels).items()}
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host time per call of fn() to enqueue its work (no synchronization
+    inside the loop), in microseconds, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def wall(fn):
@@ -262,7 +296,7 @@ def phase_kernels(dev, sc, card: str) -> list[dict]:
     print(
         f"[kernels] rows {tuple(rows.shape)} (frames, tile rows, cap {cap}, 16); "
         f"active-tile cap {act_cap}; sum(counts) = {pairs} face-tile pairs "
-        f"({pairs * TILE * TILE} pixel-slot pairs), max count {int(counts.max())}",
+        f"({pairs * TILE * TILE} pixel-slot pairs); {count_line(counts)}",
         flush=True,
     )
     args = (TILE, tw, SIGMA)
@@ -288,6 +322,7 @@ def phase_kernels(dev, sc, card: str) -> list[dict]:
     check(z_err <= 1e-5, f"K1 zbuf error {z_err} > 1e-5")
     check(n_mism == 0, f"K1 pix_to_face differs at {n_mism} pixels")
     k1_ms = cuda_ms(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2))
+    k1_host = host_us(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2))
     k1_plain_ms = cuda_ms(lambda: RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2), reps=3)
 
     # K2 against its plain version, on a fixed random cotangent.
@@ -302,6 +337,7 @@ def phase_kernels(dev, sc, card: str) -> list[dict]:
     print(f"[kernels] K2 vs plain: d(xy) max abs err {k2_err:.3g} (max |d(xy)| {scale:.3g})", flush=True)
     check(k2_ok, "K2 d(xy) outside rtol 1e-4, atol 1e-5 x max")
     k2_ms = cuda_ms(lambda: kernels.sil_bwd(rows, counts, g, *args))
+    k2_host = host_us(lambda: kernels.sil_bwd(rows, counts, g, *args))
     k2_plain_ms = cuda_ms(lambda: RFU.tile_mass_grad_plain(rows, counts, g, *args), reps=3)
 
     # The whole fused raster, kernels on the card vs plain versions on the
@@ -339,10 +375,10 @@ def phase_kernels(dev, sc, card: str) -> list[dict]:
     out_bytes_k1 = b * t_rows * TILE * TILE * 12
     in_bytes = pairs * 64 + b * t_rows * 4
     rows_out = []
-    for key, name, ms, plain_ms, err, nbytes, replaces in (
-        ("K1", "K1 tile_mass_depth", k1_ms, k1_plain_ms, max(sil_err, z_err),
+    for key, name, ms, host, plain_ms, err, nbytes, replaces in (
+        ("K1", "K1 tile_mass_depth", k1_ms, k1_host, k1_plain_ms, max(sil_err, z_err),
          in_bytes + out_bytes_k1, "dynhor_tpu/ops/raster_pallas.py:243 _fused_fwd_kernel"),
-        ("K2", "K2 tile_mass_grad", k2_ms, k2_plain_ms, k2_err,
+        ("K2", "K2 tile_mass_grad", k2_ms, k2_host, k2_plain_ms, k2_err,
          in_bytes + b * t_rows * TILE * TILE * 4 + b * t_rows * m * 24,
          "dynhor_tpu/ops/raster_pallas.py:262 _sil_bwd_kernel"),
     ):
@@ -353,20 +389,127 @@ def phase_kernels(dev, sc, card: str) -> list[dict]:
         print(
             f"[kernels] {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({ops:.3e} ops at {PEAK_FLOPS:.3g}/s, "
-            f"{nbytes} bytes) — {card}",
+            f"{nbytes} bytes); the host enqueues a call in {host:.1f} us — {card}",
             flush=True,
         )
     return rows_out
 
 
-def block_views(b, h, n, d, seed, dev):
+def count_line(counts) -> str:
+    """The tile counts' distribution and the work items K1/K4a and K2/K4b
+    make of them: sum over rows of ceil(count / chunk)."""
+    from dynhor_tpu_torch import kernels
+
+    busy = counts[counts > 0].float()
+    mean = float(busy.mean()) if busy.numel() else 0.0
+    top = int(counts.max()) if counts.numel() else 0
+    items = {s: int(((counts.long() + s - 1) // s).sum())
+             for s in (kernels.MASS_CHUNK, kernels.GRAD_CHUNK)}
+    return (
+        f"tile counts: max {top}, mean over the {busy.numel()} non-empty of {counts.numel()} "
+        f"rows {mean:.1f} (max / mean {top / max(mean, 1e-9):.2f}); work items: K1/K4a "
+        f"{items[kernels.MASS_CHUNK]} of {kernels.MASS_CHUNK} slots, K2/K4b "
+        f"{items[kernels.GRAD_CHUNK]} of {kernels.GRAD_CHUNK}"
+    )
+
+
+def crafted_rows(dev, b, t, m, counts, seed, tie=None):
+    """Tile rows of random faces around each row's tile (16 px, a grid 16
+    tiles wide), laid out as ops/raster_fused._pack_tile_rows lays them out:
+    vis 1 for most faces below the count, 0 past it.  ``tie`` = (row,
+    slots): the first slot's face, covering the tile in front of every
+    other, is copied to the other slots, so their depths tie exactly and
+    the first slot must win."""
+    rng = np.random.default_rng(seed)
+    rec = np.zeros((b, t, m, 16), np.float32)
+    rid = np.arange(t)
+    origin = np.stack([(rid % 16) * 16, (rid // 16) * 16], -1)[None, :, None, None, :]
+    corner = rng.uniform(-4.0, 20.0, (b, t, m, 1, 2))
+    tri = (corner + rng.uniform(-7.0, 7.0, (b, t, m, 3, 2)) + origin).astype(np.float32)
+    rec[..., 0:6] = tri.reshape(b, t, m, 6)
+    rec[..., 6] = rng.random((b, t, m)) > 0.1
+    rec[..., 8:11] = rng.uniform(0.5, 3.0, (b, t, m, 3))
+    counts = np.asarray(counts, np.int32)
+    rec[np.arange(m)[None, None, :] >= counts[..., None], 6] = 0.0
+    if tie is not None:
+        (fb, ft), slots = tie
+        ox, oy = origin[0, ft, 0, 0]
+        rec[fb, ft, slots[0], 0:6] = [ox - 20, oy - 20, ox + 60, oy - 20, ox - 20, oy + 60]
+        rec[fb, ft, slots[0], 6] = 1.0
+        rec[fb, ft, slots[0], 8:11] = 0.1
+        rec[fb, ft, slots[1:]] = rec[fb, ft, slots[0]]
+    return torch.as_tensor(rec).to(dev), torch.as_tensor(counts).to(dev)
+
+
+def phase_adversarial_counts(dev, card: str) -> None:
+    """K1 and K2 against their plain versions on rows whose counts the work
+    list finds hardest; hard outputs exactly equal, mass within 1e-4
+    relative, d(xy) within rtol 1e-4 and atol 1e-5 x max, and two runs
+    bit-identical.  These launches are not the main path's."""
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.ops import raster_fused as RFU
+
+    rng = np.random.default_rng(17)
+    s1, s2 = kernels.MASS_CHUNK, kernels.GRAD_CHUNK
+    full = np.zeros((FRAMES, 80), np.int32)
+    full[3, 17] = 1408
+    edges = rng.integers(0, 200, (FRAMES, 80)).astype(np.int32)
+    at_edges = [c + d for c in (s2, s1, 128) for d in (-1, 0, 1)] + [640]
+    edges.reshape(-1)[: len(at_edges)] = at_edges
+    edges[0, 20] = 199
+    wide = np.minimum(rng.pareto(1.5, (64, 80)) * 40, 256).astype(np.int32)
+    cases = {
+        "one row at the cap 1408, the rest 0": (1408, full, ((3, 17), [5, 5 + s1, 700, 1407])),
+        f"counts at {at_edges}": (640, edges, ((0, 20), [3, s1 + 3, 131])),
+        "all zero": (256, np.zeros((FRAMES, 80), np.int32), None),
+        "64 frames x 80 rows": (256, wide, None),
+    }
+    args = (TILE, 16, SIGMA)
+    for name, (m, c, tie) in cases.items():
+        b, t = c.shape
+        rows, counts = crafted_rows(dev, b, t, m, c, 23, tie)
+        g = torch.randn((b, t, TILE * TILE), generator=torch.Generator().manual_seed(2)).to(dev)
+        chunk = 32 if b * t > 1000 else 128  # the plain version's memory knob
+        mass_p, zmin_p, jbest_p = RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2, chunk=chunk)
+        dxy_p = RFU.tile_mass_grad_plain(rows, counts, g, *args, chunk=chunk)
+        runs = [(*kernels.fused_fwd(rows, counts, *args, 1e-2),
+                 kernels.sil_bwd(rows, counts, g, *args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"K1/K2 differ between two runs on the same inputs ({name})")
+        mass, zmin, jbest, dxy = runs[0]
+        check(torch.equal(zmin, zmin_p) and torch.equal(jbest, jbest_p),
+              f"K1 zbuf or pix_to_face differ from the plain version ({name})")
+        mass_err = float(((mass - mass_p).abs() / mass_p.abs().clamp_min(1.0)).max())
+        check(mass_err <= 1e-4, f"K1 mass relative error {mass_err} > 1e-4 ({name})")
+        scale = float(dxy_p.abs().max())
+        check(bool(((dxy - dxy_p).abs() <= 1e-5 * scale + 1e-4 * dxy_p.abs()).all()),
+              f"K2 d(xy) outside rtol 1e-4, atol 1e-5 x max ({name})")
+        if tie is not None:
+            (fb, ft), slots = tie
+            won = jbest[fb, ft]
+            check(int((won == slots[0]).sum()) > 0 and not bool(
+                torch.isin(won, torch.tensor(slots[1:], device=dev)).any()),
+                f"equal depths in two chunks: the first slot did not win ({name})")
+        ms = (cuda_ms(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2)),
+              cuda_ms(lambda: kernels.sil_bwd(rows, counts, g, *args)))
+        print(
+            f"[adversarial] {name}: rows {tuple(rows.shape)}; {count_line(counts)}; hard outputs "
+            f"equal, two runs bit-identical, mass max rel err {mass_err:.3g}, d(xy) max abs err "
+            f"{float((dxy - dxy_p).abs().max()):.3g} (max {scale:.3g})"
+            + (f", slot {tie[1][0]} wins the tie over {tie[1][1:]}" if tie else "")
+            + f"; K1 {ms[0]:.4f} ms, K2 {ms[1]:.4f} ms — {card}", flush=True,
+        )
+
+
+def block_views(b, h, n, d, seed, dev, dtype=torch.bfloat16):
     """q, k, v and a cotangent as models/dino._block hands them to the
     attention: strided (B, H, N, d) views of one (B, N, 3, H, d) projection
-    and of a (B, N, H * d) gradient, bf16, from a seed."""
+    and of a (B, N, H * d) gradient, in ``dtype``, from a seed."""
     gen = torch.Generator().manual_seed(seed)
-    qkv = torch.randn((b, n, 3, h, d), generator=gen).to(dev, torch.bfloat16)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen).to(dev, dtype)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
-    g = torch.randn((b, n, h * d), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((b, n, h * d), generator=gen).to(dev, dtype)
     return q, k, v, g.reshape(b, n, h, d).transpose(1, 2)
 
 
@@ -377,8 +520,9 @@ K5_EDGE_N = (1, 63, 64, 65, 127, 128, 129, 1370)
 
 def k5_parity(q, k, v, g, scale, where: str):
     """Each K5 kernel against its plain version on the same inputs; fails
-    beyond the tolerances of ``phase_flash_kernels``.  Returns the plain
-    results and the errors as {name: (max abs err, max |ref|)}."""
+    beyond the tolerances of ``phase_flash_kernels`` (those of q's dtype).
+    Returns the plain results and the errors as {name: (max abs err,
+    max |ref|)}."""
     from dynhor_tpu_torch import kernels
     from dynhor_tpu_torch.ops import flash_attention as FA
 
@@ -415,41 +559,47 @@ def k5_parity(q, k, v, g, scale, where: str):
             # that difference, held to 1e-5 of zero.
             check(e <= 1e-5 and m <= 1e-5, f"K5 {name} at {where}: {e}, {m} not 0 within 1e-5")
             continue
-        tol = 1e-5 if name in ("lse", "delta") else 2.0**-7
+        tol = 1e-5 if name in ("lse", "delta") or q.dtype == torch.float32 else 2.0**-7
         check(e <= tol * m, f"K5 {name}: error {e} > {tol} x max |ref| {m} at {where}")
     return (o_p, lse_p, delta_p), errs
 
 
-def phase_flash_kernels(dev, card: str) -> list[dict]:
-    """Each K5 kernel against its plain version on the card, bf16, at the
-    fine step's shape and at the prescreen's, and at token counts across the
-    tile edges (``K5_EDGE_N``, B 2, H 3); two backward runs must agree bit
-    for bit.  Returns the rows of the fine step's shape.
+def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> list[dict]:
+    """Each K5 kernel of ``dtype`` against its plain version on the card, at
+    the fine step's shape (bf16: and at the prescreen's), and at token counts
+    across the tile edges (``K5_EDGE_N``, B 2, H 3); two backward runs must
+    agree bit for bit.  Returns the rows of the fine step's shape.
 
-    Tolerances, relative to the largest magnitude of the compared tensor:
-    2^-7 for o, dq, dk, dv (the kernel and the plain version round P and dS
-    to bf16 and accumulate in f32 alike, but sum in another order and take
-    exp2 where the other takes exp, so a value near a rounding boundary may
-    land one bf16 step apart: 2^-8 relative, 2^-7 at a binade's lower edge);
-    1e-5 for the f32 log-sum-exp and delta."""
+    Tolerances, relative to the largest magnitude of the compared tensor.
+    bf16: 2^-7 for o, dq, dk, dv (the kernel and the plain version round P
+    and dS to bf16 and accumulate in f32 alike, but sum in another order and
+    take exp2 where the other takes exp, so a value near a rounding boundary
+    may land one bf16 step apart: 2^-8 relative, 2^-7 at a binade's lower
+    edge); 1e-5 for the f32 log-sum-exp and delta.  f32: 1e-5 for all (f32
+    sums in another order).  Bounds: bf16 products at the tensor cores'
+    peak, f32 ones (and delta) at the f32 peak."""
     from dynhor_tpu_torch import kernels
     from dynhor_tpu_torch.ops import flash_attention as FA
 
+    f32 = dtype == torch.float32
+    tname = "f32" if f32 else "bf16"
+    sfx = " f32" if f32 else ""
     for n in K5_EDGE_N:
-        q, k, v, g = block_views(2, 3, n, 64, 100 + n, dev)
-        _, errs = k5_parity(q, k, v, g, 0.125, f"(2, 3, {n}, 64)")
-        print(f"[k5] tile edge N={n} (B=2, H=3): within tolerance, backward bit-identical over "
-              "two runs; max abs err (max |ref|) "
+        q, k, v, g = block_views(2, 3, n, 64, 100 + n, dev, dtype)
+        _, errs = k5_parity(q, k, v, g, 0.125, f"(2, 3, {n}, 64) {tname}")
+        print(f"[k5] {tname} tile edge N={n} (B=2, H=3): within tolerance, backward bit-identical "
+              "over two runs; max abs err (max |ref|) "
               + ", ".join(f"{name} {e:.3g} ({m:.3g})" for name, (e, m) in errs.items()),
               flush=True)
     rows_out = None
-    for b, h, n, d, seed in ((FRAMES, 12, 1370, 64, 41), (50, 12, 65, 64, 42)):
-        q, k, v, g = block_views(b, h, n, d, seed, dev)
+    shapes = ((FRAMES, 12, 1370, 64, 41),) + (() if f32 else ((50, 12, 65, 64, 42),))
+    for b, h, n, d, seed in shapes:
+        q, k, v, g = block_views(b, h, n, d, seed, dev, dtype)
         check(not q.is_contiguous() and not g.is_contiguous(), "K5 inputs must be strided views")
         scale = 1.0 / d**0.5
-        (o_p, lse_p, delta_p), errs = k5_parity(q, k, v, g, scale, f"({b}, {h}, {n}, {d})")
+        (o_p, lse_p, delta_p), errs = k5_parity(q, k, v, g, scale, f"({b}, {h}, {n}, {d}) {tname}")
         print(
-            f"[k5] (B={b}, H={h}, N={n}, d={d}) bf16, kernel vs plain, max abs err (max |ref|): "
+            f"[k5] (B={b}, H={h}, N={n}, d={d}) {tname}, kernel vs plain, max abs err (max |ref|): "
             + ", ".join(f"{name} {e:.3g} ({m:.3g})" for name, (e, m) in errs.items()), flush=True,
         )
 
@@ -481,9 +631,9 @@ def phase_flash_kernels(dev, card: str) -> list[dict]:
             lambda: torch.autograd.grad(out_l, (ql, kl, vl), gl, retain_graph=True), 10
         )
 
-        # Bounds: operations in bf16 on the tensor cores (a product of an
-        # (N, d) by a (d, N) or (N, N) by (N, d) matrix is 2 N^2 d), bytes
-        # with each input read once and each output written once.  The
+        # Bounds: operations in the inputs' type (a product of an (N, d) by
+        # a (d, N) or (N, N) by (N, d) matrix is 2 N^2 d), bytes with each
+        # input read once and each output written once.  The
         # backward as a function needs five products (S, dP, dV, dK, dQ) and
         # each of its two passes recomputes S and dP: the rows share the
         # function's five without counting any twice, S with dK and dV on the
@@ -491,7 +641,8 @@ def phase_flash_kernels(dev, card: str) -> list[dict]:
         # whole backward (delta, then both passes) against the whole bound
         # and the library's backward.
         prod = 2 * b * h * n * n * d
-        tensor = b * h * n * d * 2  # bytes of one bf16 (B, H, N, d) tensor
+        tensor = b * h * n * d * q.element_size()  # bytes of one (B, H, N, d) tensor
+        peak_products = PEAK_FLOPS if f32 else PEAK_BF16
         vec = b * h * n * 4  # bytes of one f32 (B, H, N) tensor
         work = {
             "K5 fwd": (2 * prod, 4 * tensor + vec),  # S, P V; q k v -> o, lse
@@ -508,13 +659,14 @@ def phase_flash_kernels(dev, card: str) -> list[dict]:
         rows = []
         for key in (*K5_KEYS, "K5 bwd"):
             ops, nbytes = work[key]
-            peak = PEAK_FLOPS if key == "K5 delta" else PEAK_BF16
+            peak = PEAK_FLOPS if key == "K5 delta" else peak_products
             t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
             err = {"K5 fwd": errs["o"][0], "K5 delta": errs["delta"][0],
                    "K5 dkv": max(errs["dk"][0], errs["dv"][0]), "K5 dq": errs["dq"][0],
                    "K5 bwd": max(errs[name][0] for name in ("delta", "dq", "dk", "dv"))}[key]
             rows.append(kernel_row(
-                key + " flash_attention", "dynhor_tpu_torch/csrc/flash_attention.cu",
+                key + sfx + " flash_attention",
+                f"dynhor_tpu_torch/csrc/flash_attention{'_f32' if f32 else ''}.cu",
                 "dynhor_tpu/models/dino.py:202 _flash_attention and "
                 "dynhor_tpu/models/dino.py:243 _splash_attention",
                 err, ms[key], plain[key], ops, nbytes, peak, library.get(key),
@@ -524,16 +676,17 @@ def phase_flash_kernels(dev, card: str) -> list[dict]:
             lib_txt = (f"scaled_dot_product_attention {lib:.4f} ms" if lib is not None
                        else "no single library call")
             print(
-                f"[k5] N={n} {key}: {ms[key]:.4f} ms, {100 * bound / ms[key]:.1f} % of its bound "
+                f"[k5] {tname} N={n} {key}{sfx}: {ms[key]:.4f} ms, "
+                f"{100 * bound / ms[key]:.1f} % of its bound "
                 f"{bound:.5f} ms ({ops:.4e} ops = {t_ops:.5f} ms, {nbytes} bytes = "
                 f"{t_bytes:.5f} ms); plain {plain[key]:.3f} ms; {lib_txt} — {card}", flush=True,
             )
         print(
-            f"[k5] N={n} forward {ms['K5 fwd']:.4f} ms (scaled_dot_product_attention "
+            f"[k5] {tname} N={n} forward {ms['K5 fwd']:.4f} ms (scaled_dot_product_attention "
             f"{lib_fwd:.4f} ms); backward {ms['K5 bwd']:.4f} ms (its backward alone "
             f"{lib_bwd:.4f} ms); forward + backward {ms['K5 fwd'] + ms['K5 bwd']:.4f} ms "
             f"(scaled_dot_product_attention {lib_both:.4f} ms, bound "
-            f"{max(7 * prod / PEAK_BF16, 12 * tensor / PEAK_BYTES) * 1e3:.5f} ms for the "
+            f"{max(7 * prod / peak_products, 12 * tensor / PEAK_BYTES) * 1e3:.5f} ms for the "
             f"function's 14 B H N^2 d operations and 12 tensors of bytes; the two backward "
             f"passes run 7 products where the function needs 5) — {card}",
             flush=True,
@@ -692,9 +845,13 @@ def phase_gather_kernels(dev, card: str) -> list[dict]:
     return out
 
 
-def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg) -> dict:
-    """The fine refine at full width under dcfg.attn_impl; returns its
-    ms/step, peak memory and final losses."""
+def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg, dtype: str = "bfloat16",
+               steps: int = STEPS) -> dict:
+    """The fine refine at full width under dcfg.attn_impl with the ViT in
+    ``dtype``, ``steps`` steps; returns its ms/step, peak memory and final
+    losses.  The bf16 runs set the launches of the kernel rows other than
+    the f32 K5 ones, the f32 run those, and only the bf16 runs are broken
+    down by parts."""
     from dynhor_tpu_torch.models import dino as D
     from dynhor_tpu_torch.tracker import refine as RF
 
@@ -707,10 +864,11 @@ def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg) -> dict:
     gt = (gt / torch.linalg.norm(gt, dim=-1, keepdim=True)).to(dev)
     targets = RF.FrameTargets(masks, gt, K.expand(FRAMES, 3, 3))
     cfg = RF.RefineConfig(
-        num_iterations=STEPS, crop_size=CROP, mode="fine",
-        max_faces_per_tile=cap, max_active_tiles=act_cap,
+        num_iterations=steps, crop_size=CROP, mode="fine",
+        max_faces_per_tile=cap, max_active_tiles=act_cap, dino_dtype=dtype,
     )
-    tag = f"[main {dcfg.attn_impl}]"
+    f32 = dtype == "float32"
+    tag = f"[main {dcfg.attn_impl}{' f32' if f32 else ''}]"
     print(f"{tag} per-tile face cap {cap}, active-tile cap {act_cap} (counted)", flush=True)
     warm = RF.refine_poses(
         mesh, targets, rot, trans, dparams, dcfg,
@@ -734,16 +892,17 @@ def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg) -> dict:
           "poses not finite")
     check(res.max_overflow == 0, f"overflow {res.max_overflow} at counted caps")
     for k in ("K1", "K2"):
-        check(launches[k] == STEPS, f"{k} launched {launches[k]} times in {STEPS} steps")
+        check(launches[k] == steps, f"{k} launched {launches[k]} times in {steps} steps")
     check(launches["K3"] == 0, "the fine refine launched K3")
     # Counted after the warm-up step: under "xla" no K5 launch at all, else
-    # each K5 kernel once per layer and step.
-    per_kernel = 0 if dcfg.attn_impl == "xla" else dcfg.depth * STEPS
-    check_k5_launches(launches, per_kernel, per_kernel, f"refine_poses {dcfg.attn_impl}")
-    ms_step = wall / STEPS * 1e3
-    fps = FRAMES / (wall * (REFINE_STEPS_FULL / STEPS))
+    # each K5 kernel of the ViT's dtype once per layer and step.
+    per_kernel = 0 if dcfg.attn_impl == "xla" else dcfg.depth * steps
+    check_k5_launches(launches, per_kernel, per_kernel, f"refine_poses {dcfg.attn_impl} {dtype}",
+                      dtype)
+    ms_step = wall / steps * 1e3
+    fps = FRAMES / (wall * (REFINE_STEPS_FULL / steps))
     print(
-        f"{tag} refine_poses fine, ViT-B/14 518² bf16, {FRAMES} frames, {STEPS} steps: "
+        f"{tag} refine_poses fine, ViT-B/14 518² {dtype}, {FRAMES} frames, {steps} steps: "
         f"{ms_step:.2f} ms/step, {fps:.4f} frames/s at 100 steps/frame, peak "
         f"{peak / 2**30:.2f} GiB allocated, launches {launches} — {card}", flush=True,
     )
@@ -754,10 +913,11 @@ def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg) -> dict:
     for row in kernel_rows:
         key = row["name"].rsplit(" ", 1)[0]
         # One whole backward is one launch of each of its three kernels.
-        n = launches["K5 delta"] if key == "K5 bwd" else launches.get(key, 0)
-        if n > 0:
+        n = launches.get(key.replace("K5 bwd", "K5 delta"), 0)
+        if n > 0 and key.endswith(" f32") == f32:
             row["launches"] = n
-    step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, card)
+    if not f32:
+        step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, card)
     return {"ms_step": ms_step, "peak_gib": peak / 2**30, "loss": res.final_loss.tolist(),
             "rot6d": res.rot6d, "trans": res.translations}
 
@@ -840,8 +1000,9 @@ def step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, 
             key = "K5"
         elif any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
             key = "matmul"
-        elif "mass_fwd_kernel" in name or "sil_bwd_kernel" in name:
-            key = "K1+K2"
+        elif any(k in name for k in ("mass_fwd_kernel", "mass_merge_kernel", "chunk_prefix_kernel",
+                                     "sil_bwd_kernel")):
+            key = "K1+K2"  # with their work list's pre-pass and K1's merge pass
         else:
             key = "other kernels"
         groups[key] += e.self_device_time_total / steps / 1e3
@@ -858,10 +1019,10 @@ def step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, 
         )
 
 
-def small_vit(attn_impl: str):
+def small_vit(attn_impl: str, dtype: str = "bfloat16"):
     """The small scenes' ViT: (config, parameters, dtype name, width).  With
-    the written-out attention a tiny f32 one (head dim 16).  K5 takes bf16 at
-    head dim 64 only, so the flash variant is two heads of 64 in bf16, with
+    the written-out attention a tiny f32 one (head dim 16).  K5 takes head
+    dim 64 only, so the flash variant is two heads of 64, in ``dtype``, with
     the attention's layer scale raised from the random init's 1e-5 to 1 so
     that what K5 computes reaches the tokens."""
     from dynhor_tpu_torch.models import dino as D
@@ -872,14 +1033,15 @@ def small_vit(attn_impl: str):
     params = D.init_params(dcfg, torch.Generator().manual_seed(3))
     if attn_impl != "xla":
         params["blocks"]["ls1"] = torch.ones_like(params["blocks"]["ls1"])
-    return dcfg, params, "float32" if attn_impl == "xla" else "bfloat16", width
+    return dcfg, params, "float32" if attn_impl == "xla" else dtype, width
 
 
-def phase_small_reference(dev, attn_impl: str = "xla") -> None:
+def phase_small_reference(dev, attn_impl: str = "xla", dtype: str = "bfloat16") -> None:
     """refine_poses on a small scene: the card (kernels) against the CPU
-    (plain versions), over 3 steps.  With the written-out attention the ViT
-    is f32 without TF32 and the trajectories agree within 1e-4.  With
-    "flash" the ViT is bf16 on both sides.  Both accumulate bf16 products
+    (plain versions), over 3 steps.  With the written-out attention, and
+    with "flash" in f32 (the f32 K5 kernels), the ViT is f32 without TF32
+    and the trajectories agree within 1e-4.  With bf16 "flash" the ViT is
+    bf16 on both sides.  Both accumulate bf16 products
     in f32, so most values round to the same bf16 number and the run that
     set these limits differed by 4e-6; a value that lands on the other side
     of a rounding boundary moves by 2^-8 of itself, so the limit is 1e-3 for
@@ -905,7 +1067,7 @@ def phase_small_reference(dev, attn_impl: str = "xla") -> None:
     K = torch.tensor([[float(s), 0, s / 2], [0, float(s), s / 2], [0, 0, 1.0]])
     vp = RZ.project_perspective(v @ R + t[:, None], K)
     masks = (RZ.rasterize(vp, f, (s, s), face_chunk=12).pix_to_face >= 0).float()
-    dcfg, params, dtype, width = small_vit(attn_impl)
+    dcfg, params, dtype, width = small_vit(attn_impl, dtype)
     gt = torch.randn((2, 16, width), generator=torch.Generator().manual_seed(4))
     targets = RF.FrameTargets(masks, gt, K.expand(2, 3, 3))
     cfg = RF.RefineConfig(num_iterations=3, crop_size=s, mode="fine", dino_dtype=dtype,
@@ -915,7 +1077,7 @@ def phase_small_reference(dev, attn_impl: str = "xla") -> None:
     reset_launches()
     r_dev = RF.refine_poses(mesh, targets, R0, t + 0.03, params, dcfg, cfg, device=dev)
     per_kernel = 0 if attn_impl == "xla" else dcfg.depth * 3
-    check_k5_launches(read_launches(), per_kernel, per_kernel, f"small refine {attn_impl}")
+    check_k5_launches(read_launches(), per_kernel, per_kernel, f"small refine {attn_impl}", dtype)
     r_cpu = RF.refine_poses(mesh, targets, R0, t + 0.03, params, dcfg, cfg, device="cpu")
     errs = {
         k: float((a.cpu() - b).abs().max())
@@ -923,7 +1085,7 @@ def phase_small_reference(dev, attn_impl: str = "xla") -> None:
     }
     print(f"[small {attn_impl}] refine_poses 3 steps, {dtype} ViT, card vs CPU max abs err: "
           f"{errs}", flush=True)
-    if attn_impl == "xla":
+    if dtype == "float32":
         tols = dict.fromkeys(errs, 1e-4)
     else:
         tols = {"rot6d": 1e-3, "trans": 1e-3, "loss": 1e-3, "iou": 1e-2}
@@ -1392,11 +1554,12 @@ def prior_breakdown(dev, card, dparams, dcfg, mesh, view_rots, crops, masks, gt_
             )
 
 
-def phase_priors_small(dev, attn_impl: str = "xla") -> None:
+def phase_priors_small(dev, attn_impl: str = "xla", dtype: str = "bfloat16") -> None:
     """The prior path on a small scene (24 views, crop 64, render 192, 2
-    frames, topk 4), on the card and on the CPU.  With the written-out
-    attention (tiny f32 ViT) the scores agree within 1e-5 and the gate
-    selects the same views.  With "flash" (bf16 ViT, see small_vit) the
+    frames, topk 4), on the card and on the CPU.  With an f32 ViT (the
+    written-out attention's tiny one, or "flash" in f32 through the f32 K5
+    kernels) the scores agree within 1e-5 and the gate selects the same
+    views.  With bf16 "flash" (see small_vit) the
     scores, masked means of cosines of bf16 features, agree within 1e-3 (the
     run that set the limit differed by 2e-5), and the selection is printed,
     not required: views whose scores lie closer than that may swap."""
@@ -1405,7 +1568,7 @@ def phase_priors_small(dev, attn_impl: str = "xla") -> None:
 
     mesh = prior_mesh("cpu")
     crops, masks, _ = render_frames(*mesh, 2, 64, 31)
-    dcfg, params, dtype, _ = small_vit(attn_impl)
+    dcfg, params, dtype, _ = small_vit(attn_impl, dtype)
     rots = uniform_rotations(24, 32, "cpu")
     cfg = TP.PriorConfig(num_views=24, view_chunk=8, crop_size=64, render_h=192,
                          render_w=192, dino_dtype=dtype)
@@ -1414,6 +1577,7 @@ def phase_priors_small(dev, attn_impl: str = "xla") -> None:
                                float(cfg.distance_scale * radius))
     out = {}
     for where in (dev, "cpu"):
+        reset_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             gt, cm = TP.frame_gt_features(params, dcfg, crops, masks, dtype, where)
             scores = TP.prior_scores_two_stage(
@@ -1422,6 +1586,9 @@ def phase_priors_small(dev, attn_impl: str = "xla") -> None:
             )
         gate = TS.gate_all_frames(scores, rots.transpose(-1, -2).to(scores.device))
         out[str(where)] = (scores.cpu(), gate.selected_idx.cpu())
+        if where == dev and attn_impl != "xla":
+            k5 = read_launches()[K5_DTYPE_KEYS[dtype][0]]
+            check(k5 > 0, f"the small prior path under {attn_impl} {dtype} launched no K5 forward")
     (s_dev, i_dev), (s_cpu, i_cpu) = out[str(dev)], out["cpu"]
     err = float((s_dev - s_cpu).abs().max())
     print(
@@ -1429,9 +1596,9 @@ def phase_priors_small(dev, attn_impl: str = "xla") -> None:
         f"{err:.3g}; selected {i_dev.tolist()} vs {i_cpu.tolist()}", flush=True,
     )
     check(bool(torch.isfinite(s_dev).all()), "small prior scores not finite")
-    tol = 1e-5 if attn_impl == "xla" else 1e-3
+    tol = 1e-5 if dtype == "float32" else 1e-3
     check(err <= tol, f"prior scores differ by {err} > {tol} between card and CPU")
-    if attn_impl == "xla":
+    if dtype == "float32":
         check(torch.equal(i_dev, i_cpu), "gating selected other views on the card")
 
 
@@ -1444,8 +1611,10 @@ def main() -> None:
     smi = phase_build()
     sc = scene(dev)
     kernel_rows = phase_kernels(dev, sc, smi)
+    phase_adversarial_counts(dev, smi)
     kernel_rows.append(phase_depth_kernel(dev, smi))
     kernel_rows.extend(phase_flash_kernels(dev, smi))
+    kernel_rows.extend(phase_flash_kernels(dev, smi, torch.float32))
     kernel_rows.extend(phase_silhouette_kernels(dev, sc, smi))
     kernel_rows.extend(phase_gather_kernels(dev, smi))
     from dynhor_tpu_torch.models.dino import DinoConfig
@@ -1460,8 +1629,13 @@ def main() -> None:
         f"{float((written['rot6d'] - fused['rot6d']).abs().max()):.3g}, of the translations "
         f"{float((written['trans'] - fused['trans']).abs().max()):.3g} — {smi}", flush=True,
     )
-    for impl in ("xla", "flash"):
-        phase_small_reference(dev, impl)
+    f32 = phase_main(dev, sc, smi, kernel_rows, flash, "float32", steps=2)
+    print(
+        f"[main] flash, ViT in f32 against bf16: {f32['ms_step']:.2f} vs {fused['ms_step']:.2f} "
+        f"ms/step, peak {f32['peak_gib']:.2f} vs {fused['peak_gib']:.2f} GiB — {smi}", flush=True,
+    )
+    for impl, dtype in (("xla", "float32"), ("flash", "bfloat16"), ("flash", "float32")):
+        phase_small_reference(dev, impl, dtype)
     phase_joint(dev, sc, smi)
     phase_joint_small(dev)
     phase_profiler(dev, sc, smi, kernel_rows)
@@ -1474,8 +1648,8 @@ def main() -> None:
         f"{pf['peak_gib']:.2f} GiB; selected views {pw['selected']} vs {pf['selected']} — {smi}",
         flush=True,
     )
-    for impl in ("xla", "flash"):
-        phase_priors_small(dev, impl)
+    for impl, dtype in (("xla", "float32"), ("flash", "bfloat16"), ("flash", "float32")):
+        phase_priors_small(dev, impl, dtype)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]
     check(not missing, f"kernels of the path that the main path never launched: {missing}")
     print(json.dumps({"kernels": kernel_rows}), flush=True)

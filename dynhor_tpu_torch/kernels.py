@@ -7,15 +7,16 @@ loaded with ``ctypes``.  ``build()`` compiles every source at once, one
 ``nvcc`` each, started together.  Nothing is built or loaded when this
 module is imported.
 
-Each wrapper checks device, dtype, shape and layout, allocates its outputs,
-launches on ``torch.cuda.current_stream()``, raises if the launch was
-refused (the C entry point returns ``cudaGetLastError()``), and adds one to
-its ``launches`` count — a plain integer on the wrapper, so a run can show
-that it went through the kernel.
+Each wrapper checks device, dtype, shape and layout, allocates its outputs
+and scratch, launches on ``torch.cuda.current_stream()``, raises if the
+launch was refused (the C entry point returns ``cudaGetLastError()``), and
+adds one to its ``launches`` count — a plain integer on the wrapper, so a
+run can show that it went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,10 +39,10 @@ SOURCES = {
     # so the hard raster decisions agree; the fused multiply-adds they need
     # are explicit (see csrc/raster_fused.cu).
     "raster_fused": ([*_FLAGS, "-fmad=false"], {
-        "dynhor_fused_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-        "dynhor_sil_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "dynhor_fused_fwd": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
+        "dynhor_sil_bwd": [_P] * 5 + [_I] * 5 + [_F, _P],
         "dynhor_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "dynhor_sil_mass_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "dynhor_sil_mass_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
     }),
     # The attention kernels make no hard decision and keep nvcc's default.
     "flash_attention": (list(_FLAGS), {
@@ -49,6 +50,13 @@ SOURCES = {
         "dynhor_flash_delta": [_P, _P, _P, _I, _I, _I, _STRIDES, _P],
         "dynhor_flash_bwd_dkv": [_P] * 8 + [_I, _I, _I, _F, _STRIDES, _P],
         "dynhor_flash_bwd_dq": [_P] * 7 + [_I, _I, _I, _F, _STRIDES, _P],
+    }),
+    # The f32 attention: the same C signatures, a library of its own.
+    "flash_attention_f32": (list(_FLAGS), {
+        "dynhor_flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _STRIDES, _P],
+        "dynhor_flash_delta_f32": [_P, _P, _P, _I, _I, _I, _STRIDES, _P],
+        "dynhor_flash_bwd_dkv_f32": [_P] * 8 + [_I, _I, _I, _F, _STRIDES, _P],
+        "dynhor_flash_bwd_dq_f32": [_P] * 7 + [_I, _I, _I, _F, _STRIDES, _P],
     }),
     # Loads and atomic adds only: nvcc's default.
     "gather_probe": (list(_FLAGS), {
@@ -156,23 +164,54 @@ def _launch_args(rows: torch.Tensor, counts: torch.Tensor, tile: int):
     return b, t, m, torch.cuda.current_stream(rows.device).cuda_stream
 
 
+# K1/K2/K4a/K4b run on a work list cut by the counts (csrc/raster_fused.cu):
+# an item is (tile row, chunk of slots), MASS_CHUNK slots for K1 and K4a,
+# GRAD_CHUNK (one a lane of a warp, fixed in the source) for K2 and K4b.
+MASS_CHUNK = 64
+GRAD_CHUNK = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _part_blocks(device: torch.device, n_pix: int) -> int:
+    """The most blocks of ``n_pix`` threads the card can hold at once: the
+    number of partial-result pairs K1's and K4a's scratch must hold."""
+    props = torch.cuda.get_device_properties(device)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // n_pix
+    return props.multi_processor_count * max(1, per_sm)
+
+
+def _mass_launch(wrapper, entry, rows, counts, tile, tiles_w, sigma, outs, extra):
+    """K1's or K4a's three launches (pre-pass, forward, merge) with their
+    scratch; ``outs`` are the output tensors, ``extra`` the arguments after
+    sigma."""
+    b, t, m, _ = rows.shape
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    n_pix = tile * tile
+    blocks = _part_blocks(rows.device, n_pix)
+    start = torch.empty((b * t + 1,), dtype=torch.int32, device=rows.device)
+    parts = torch.empty((len(outs), 2 * blocks, n_pix), dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        err = entry(
+            rows.data_ptr(), counts.data_ptr(), *(x.data_ptr() for x in outs), start.data_ptr(),
+            parts.data_ptr(), blocks, b * t, t, m, MASS_CHUNK, tile, tiles_w, sigma, *extra,
+            stream,
+        )
+    if err:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+
+
 def fused_fwd(rows, counts, tile, tiles_w, sigma, znear):
     """K1 on the card: see ops/raster_fused.tile_mass_depth_plain."""
-    b, t, m, stream = _launch_args(rows, counts, tile)
+    b, t, m, _ = _launch_args(rows, counts, tile)
     p = tile * tile
     mass = torch.empty((b, t, p), dtype=torch.float32, device=rows.device)
     zmin = torch.empty_like(mass)
     jbest = torch.empty((b, t, p), dtype=torch.int32, device=rows.device)
     if b * t == 0:
         return mass, zmin, jbest
-    with torch.cuda.device(rows.device):
-        err = _lib("raster_fused").dynhor_fused_fwd(
-            rows.data_ptr(), counts.data_ptr(), mass.data_ptr(), zmin.data_ptr(),
-            jbest.data_ptr(), b * t, t, m, tile, tiles_w, sigma, znear, stream,
-        )
-    if err:
-        raise RuntimeError(f"fused_fwd kernel launch failed: CUDA error {err}")
-    fused_fwd.launches += 1
+    _mass_launch(fused_fwd, _lib("raster_fused").dynhor_fused_fwd, rows, counts, tile, tiles_w,
+                 sigma, (mass, zmin, jbest), (znear,))
     return mass, zmin, jbest
 
 
@@ -186,9 +225,10 @@ def _sil_bwd(wrapper, rows, counts, g, tile, tiles_w, sigma):
     dxy = torch.empty((b, t, m, 6), dtype=torch.float32, device=rows.device)
     if b * t == 0:
         return dxy
+    start = torch.empty((b * t + 1,), dtype=torch.int32, device=rows.device)
     with torch.cuda.device(rows.device):
         err = _lib("raster_fused").dynhor_sil_bwd(
-            rows.data_ptr(), counts.data_ptr(), g.data_ptr(), dxy.data_ptr(),
+            rows.data_ptr(), counts.data_ptr(), g.data_ptr(), dxy.data_ptr(), start.data_ptr(),
             b * t, t, m, tile, tiles_w, sigma, stream,
         )
     if err:
@@ -208,18 +248,12 @@ sil_bwd.launches = 0
 def sil_mass_fwd(rows, counts, tile, tiles_w, sigma):
     """K4a on the card: see ops/silhouette_kernel.tile_mass_plain.
     Returns mass (B, T, tile * tile) f32."""
-    b, t, m, stream = _launch_args(rows, counts, tile)
+    b, t, _, _ = _launch_args(rows, counts, tile)
     mass = torch.empty((b, t, tile * tile), dtype=torch.float32, device=rows.device)
     if b * t == 0:
         return mass
-    with torch.cuda.device(rows.device):
-        err = _lib("raster_fused").dynhor_sil_mass_fwd(
-            rows.data_ptr(), counts.data_ptr(), mass.data_ptr(), b * t, t, m, tile,
-            tiles_w, sigma, stream,
-        )
-    if err:
-        raise RuntimeError(f"sil_mass_fwd kernel launch failed: CUDA error {err}")
-    sil_mass_fwd.launches += 1
+    _mass_launch(sil_mass_fwd, _lib("raster_fused").dynhor_sil_mass_fwd, rows, counts, tile,
+                 tiles_w, sigma, (mass,), ())
     return mass
 
 
@@ -258,18 +292,37 @@ depth_fwd.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K5: flash attention (csrc/flash_attention.cu), bf16 at head dim 64.
+# K5: flash attention at head dim 64, bf16 (csrc/flash_attention.cu) or f32
+# (csrc/flash_attention_f32.cu).  Each public wrapper takes both and sends
+# f32 on to its ``*_f32`` twin, which keeps a launch count of its own.
 # --------------------------------------------------------------------------
 
 _FLASH_HD = 64
+# dtype -> (source, suffix of its C entry points)
+_FLASH_KERNELS = {
+    torch.bfloat16: ("flash_attention", ""),
+    torch.float32: ("flash_attention_f32", "_f32"),
+}
 
 
-def _check_heads(name: str, x: torch.Tensor, shape: tuple | None = None) -> None:
-    """A (B, H, N, 64) bf16 CUDA tensor; ``tma_layout`` checks its layout."""
+def flash_dtype(dtype: torch.dtype, name: str = "q") -> torch.dtype:
+    """The dtype rule of the K5 dispatch: bf16 goes to the bf16 kernels, f32
+    to the f32 ones, and any other dtype raises ``ValueError`` (no cast, and
+    no plain version on the card)."""
+    if dtype not in _FLASH_KERNELS:
+        raise ValueError(f"{name} must be torch.bfloat16 or torch.float32, got {dtype}")
+    return dtype
+
+
+def _check_heads(name: str, x: torch.Tensor, shape: tuple | None = None,
+                 dtype: torch.dtype | None = None) -> None:
+    """A (B, H, N, 64) CUDA tensor of a dtype the kernels take (``dtype``
+    where given); ``tma_layout`` checks its layout."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{name} must be torch.bfloat16, got {x.dtype}")
+    flash_dtype(x.dtype, name)
+    if dtype is not None and x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if x.dim() != 4 or x.shape[-1] != _FLASH_HD or (shape is not None and tuple(x.shape) != shape):
         want = shape if shape is not None else f"(B, H, N, {_FLASH_HD})"
         raise ValueError(f"{name} must have shape {want}, got {tuple(x.shape)}")
@@ -278,18 +331,19 @@ def _check_heads(name: str, x: torch.Tensor, shape: tuple | None = None) -> None
 
 
 def tma_layout(x: torch.Tensor, name: str = "x") -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """The tensor map through which the K5 kernels read a (B, H, N, 64) view
-    of 2-byte values: its dims innermost first, (64, N, H, B), and the byte
-    strides of the token, head and batch dims.  The stride of a dim of
-    extent 1 is never used; it is replaced by the span of the dims inside it.
+    """The layout through which the K5 kernels read a (B, H, N, 64) view of
+    2-byte (bf16: a TMA tensor map) or 4-byte values (f32: 16-byte loads):
+    its dims innermost first, (64, N, H, B), and the byte strides of the
+    token, head and batch dims.  The stride of a dim of extent 1 is never
+    used; it is replaced by the span of the dims inside it.
 
-    Raises ``ValueError`` for a layout that TMA cannot read: a head dim that
-    is not contiguous, a base that is not 16-byte aligned, or a stride that is
+    Raises ``ValueError`` for a layout neither can read: a head dim that is
+    not contiguous, a base that is not 16-byte aligned, or a stride that is
     not a positive multiple of 16 bytes (a broadcast's zero stride included)."""
-    shape, stride = x.shape, x.stride()
-    if len(shape) != 4 or shape[3] != _FLASH_HD or x.element_size() != 2:
+    shape, stride, size = x.shape, x.stride(), x.element_size()
+    if len(shape) != 4 or shape[3] != _FLASH_HD or size not in (2, 4):
         raise ValueError(
-            f"{name} must be a (B, H, N, {_FLASH_HD}) tensor of 2-byte values, "
+            f"{name} must be a (B, H, N, {_FLASH_HD}) tensor of 2- or 4-byte values, "
             f"got {x.dtype} {tuple(shape)}"
         )
     if stride[3] != 1:
@@ -297,14 +351,14 @@ def tma_layout(x: torch.Tensor, name: str = "x") -> tuple[tuple[int, ...], tuple
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: the base must be 16-byte aligned (address {x.data_ptr():#x})")
     b, h, n, d = shape
-    row = 2 * d
-    sn = 2 * stride[2] if n > 1 else row
-    sh = 2 * stride[1] if h > 1 else max(row, sn * n)
-    sb = 2 * stride[0] if b > 1 else max(row, sn * n, sh * h)
+    row = size * d
+    sn = size * stride[2] if n > 1 else row
+    sh = size * stride[1] if h > 1 else max(row, sn * n)
+    sb = size * stride[0] if b > 1 else max(row, sn * n, sh * h)
     if min(sn, sh, sb) <= 0 or (sn | sh | sb) % 16:
         raise ValueError(
             f"{name}: every stride must be a positive multiple of 16 bytes "
-            f"(strides {stride}, in elements of 2 bytes)"
+            f"(strides {stride}, in elements of {size} bytes)"
         )
     return (d, n, h, b), (sn, sh, sb)
 
@@ -321,7 +375,8 @@ def _map_strides(inputs: dict, *outputs: torch.Tensor):
     flat = []
     for name, x in inputs.items():
         _, (sn, sh, sb) = tma_layout(x, name)
-        flat += (sb // 2, sh // 2, sn // 2)
+        size = x.element_size()
+        flat += (sb // size, sh // size, sn // size)
     for x in outputs:
         flat += x.stride()[:3]
     return (ctypes.c_longlong * len(flat))(*flat)
@@ -349,114 +404,174 @@ def _heads_out(like: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, n, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def flash_fwd(q, k, v, sm_scale: float):
-    """K5 forward on the card: see ops/flash_attention.flash_fwd_plain.
-    Returns (o (B, H, N, 64) bf16 stored as (B, N, H, 64), lse (B, H, N) f32)."""
+def _flash_entry(wrapper, dtype: torch.dtype, entry: str):
+    """The C entry point ``entry`` of ``dtype``'s kernels, and the wrapper's
+    name for errors."""
+    source, suffix = _FLASH_KERNELS[dtype]
+    return getattr(_lib(source), entry + suffix), wrapper.__name__
+
+
+def _fwd(wrapper, q, k, v, sm_scale):
     _check_heads("q", q)
     b, h, n, _ = q.shape
-    _check_heads("k", k, (b, h, n, _FLASH_HD))
-    _check_heads("v", v, (b, h, n, _FLASH_HD))
+    _check_heads("k", k, (b, h, n, _FLASH_HD), q.dtype)
+    _check_heads("v", v, (b, h, n, _FLASH_HD), q.dtype)
     o = _heads_out(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
     strides = _map_strides({"q": q, "k": k, "v": v}, o)
-    lib = _lib("flash_attention")
+    fn, name = _flash_entry(wrapper, q.dtype, "dynhor_flash_fwd")
     with torch.cuda.device(q.device):
-        err = lib.dynhor_flash_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, n, sm_scale, strides, torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise _flash_error("flash_fwd", err)
-    flash_fwd.launches += 1
+        raise _flash_error(name, err)
+    wrapper.launches += 1
     return o, lse
 
 
-flash_fwd.launches = 0
-
-
-def _check_bwd(q, k, v, d_o, lse, delta):
+def flash_fwd(q, k, v, sm_scale: float):
+    """K5 forward on the card: see ops/flash_attention.flash_fwd_plain.
+    Returns (o (B, H, N, 64) in q's dtype stored as (B, N, H, 64), lse
+    (B, H, N) f32).  f32 inputs go to ``flash_fwd_f32``."""
     _check_heads("q", q)
+    if q.dtype == torch.float32:
+        return flash_fwd_f32(q, k, v, sm_scale)
+    return _fwd(flash_fwd, q, k, v, sm_scale)
+
+
+def flash_fwd_f32(q, k, v, sm_scale: float):
+    """The f32 K5 forward (csrc/flash_attention_f32.cu)."""
+    _check_heads("q", q, dtype=torch.float32)
+    return _fwd(flash_fwd_f32, q, k, v, sm_scale)
+
+
+flash_fwd.launches = flash_fwd_f32.launches = 0
+
+
+def _check_bwd(q, k, v, d_o, lse, delta, dtype):
+    _check_heads("q", q, dtype=dtype)
     shape = tuple(q.shape)
-    _check_heads("k", k, shape)
-    _check_heads("v", v, shape)
-    _check_heads("d_o", d_o, shape)
+    _check_heads("k", k, shape, dtype)
+    _check_heads("v", v, shape, dtype)
+    _check_heads("d_o", d_o, shape, dtype)
     _check("lse", lse, torch.float32, shape[:3])
     _check("delta", delta, torch.float32, shape[:3])
     return shape[:3]
 
 
-def flash_bwd_delta(o, d_o):
-    """K5 backward, delta = rowsum(dO * O): (B, H, N) f32."""
-    _check_heads("o", o)
+def _delta(wrapper, dtype, o, d_o):
+    _check_heads("o", o, dtype=dtype)
     b, h, n, _ = o.shape
-    _check_heads("d_o", d_o, tuple(o.shape))
+    _check_heads("d_o", d_o, tuple(o.shape), dtype)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=o.device)
     if o.numel() == 0:
         return delta
-    tma_layout(o, "o")  # the kernel reads 16-byte pieces of rows, as TMA does
+    tma_layout(o, "o")  # the kernels read 16-byte pieces of rows, as TMA does
     tma_layout(d_o, "d_o")
-    lib = _lib("flash_attention")
+    fn, name = _flash_entry(wrapper, dtype, "dynhor_flash_delta")
     with torch.cuda.device(o.device):
-        err = lib.dynhor_flash_delta(
+        err = fn(
             o.data_ptr(), d_o.data_ptr(), delta.data_ptr(), b, h, n, _strides(o, d_o),
             torch.cuda.current_stream(o.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_bwd_delta kernel launch failed: CUDA error {err}")
-    flash_bwd_delta.launches += 1
+        raise _flash_error(name, err)
+    wrapper.launches += 1
     return delta
 
 
-flash_bwd_delta.launches = 0
+def flash_bwd_delta(o, d_o):
+    """K5 backward, delta = rowsum(dO * O): (B, H, N) f32.  f32 inputs go to
+    ``flash_bwd_delta_f32``."""
+    _check_heads("o", o)
+    if o.dtype == torch.float32:
+        return flash_bwd_delta_f32(o, d_o)
+    return _delta(flash_bwd_delta, torch.bfloat16, o, d_o)
 
 
-def flash_bwd_dkv(q, k, v, d_o, lse, delta, sm_scale: float):
-    """K5 backward on the card, (dk, dv): see
-    ops/flash_attention.flash_bwd_plain."""
-    b, h, n = _check_bwd(q, k, v, d_o, lse, delta)
+def flash_bwd_delta_f32(o, d_o):
+    """The f32 K5 delta (csrc/flash_attention_f32.cu)."""
+    return _delta(flash_bwd_delta_f32, torch.float32, o, d_o)
+
+
+flash_bwd_delta.launches = flash_bwd_delta_f32.launches = 0
+
+
+def _dkv(wrapper, dtype, q, k, v, d_o, lse, delta, sm_scale):
+    b, h, n = _check_bwd(q, k, v, d_o, lse, delta, dtype)
     dk, dv = _heads_out(k), _heads_out(v)
     if q.numel() == 0:
         return dk, dv
     strides = _map_strides({"q": q, "k": k, "v": v, "d_o": d_o}, dk, dv)
-    lib = _lib("flash_attention")
+    fn, name = _flash_entry(wrapper, dtype, "dynhor_flash_bwd_dkv")
     with torch.cuda.device(q.device):
-        err = lib.dynhor_flash_bwd_dkv(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, sm_scale, strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise _flash_error("flash_bwd_dkv", err)
-    flash_bwd_dkv.launches += 1
+        raise _flash_error(name, err)
+    wrapper.launches += 1
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+def flash_bwd_dkv(q, k, v, d_o, lse, delta, sm_scale: float):
+    """K5 backward on the card, (dk, dv): see
+    ops/flash_attention.flash_bwd_plain.  f32 inputs go to
+    ``flash_bwd_dkv_f32``."""
+    _check_heads("q", q)
+    if q.dtype == torch.float32:
+        return flash_bwd_dkv_f32(q, k, v, d_o, lse, delta, sm_scale)
+    return _dkv(flash_bwd_dkv, torch.bfloat16, q, k, v, d_o, lse, delta, sm_scale)
 
 
-def flash_bwd_dq(q, k, v, d_o, lse, delta, sm_scale: float):
-    """K5 backward on the card, dq: see ops/flash_attention.flash_bwd_plain."""
-    b, h, n = _check_bwd(q, k, v, d_o, lse, delta)
+def flash_bwd_dkv_f32(q, k, v, d_o, lse, delta, sm_scale: float):
+    """The f32 K5 dK/dV pass (csrc/flash_attention_f32.cu)."""
+    return _dkv(flash_bwd_dkv_f32, torch.float32, q, k, v, d_o, lse, delta, sm_scale)
+
+
+flash_bwd_dkv.launches = flash_bwd_dkv_f32.launches = 0
+
+
+def _dq(wrapper, dtype, q, k, v, d_o, lse, delta, sm_scale):
+    b, h, n = _check_bwd(q, k, v, d_o, lse, delta, dtype)
     dq = _heads_out(q)
     if q.numel() == 0:
         return dq
     strides = _map_strides({"q": q, "k": k, "v": v, "d_o": d_o}, dq)
-    lib = _lib("flash_attention")
+    fn, name = _flash_entry(wrapper, dtype, "dynhor_flash_bwd_dq")
     with torch.cuda.device(q.device):
-        err = lib.dynhor_flash_bwd_dq(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), b, h, n, sm_scale, strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise _flash_error("flash_bwd_dq", err)
-    flash_bwd_dq.launches += 1
+        raise _flash_error(name, err)
+    wrapper.launches += 1
     return dq
 
 
-flash_bwd_dq.launches = 0
+def flash_bwd_dq(q, k, v, d_o, lse, delta, sm_scale: float):
+    """K5 backward on the card, dq: see ops/flash_attention.flash_bwd_plain.
+    f32 inputs go to ``flash_bwd_dq_f32``."""
+    _check_heads("q", q)
+    if q.dtype == torch.float32:
+        return flash_bwd_dq_f32(q, k, v, d_o, lse, delta, sm_scale)
+    return _dq(flash_bwd_dq, torch.bfloat16, q, k, v, d_o, lse, delta, sm_scale)
+
+
+def flash_bwd_dq_f32(q, k, v, d_o, lse, delta, sm_scale: float):
+    """The f32 K5 dQ pass (csrc/flash_attention_f32.cu)."""
+    return _dq(flash_bwd_dq_f32, torch.float32, q, k, v, d_o, lse, delta, sm_scale)
+
+
+flash_bwd_dq.launches = flash_bwd_dq_f32.launches = 0
 
 
 # --------------------------------------------------------------------------

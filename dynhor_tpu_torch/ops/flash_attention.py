@@ -6,8 +6,11 @@ valid tokens and differ in tiling and padding only, so ``flash_attention``
 is the counterpart of both.  Nothing is padded: the true token count goes to
 the kernels, which mask the ragged edge themselves.
 
-For CUDA tensors the forward and the backward are the kernels of
-``csrc/flash_attention.cu`` (bf16 at head dim 64; anything else raises).
+For CUDA tensors the forward and the backward are hand-written kernels at
+head dim 64: bf16 goes to ``csrc/flash_attention.cu`` (TMA and ``wgmma``),
+f32 to ``csrc/flash_attention_f32.cu`` (f32 FMAs on the CUDA cores, as the
+ViT computes with ``dino_dtype="float32"``); any other dtype or head dim
+raises ``ValueError``, with no cast and no plain version on the card.
 For CPU tensors they are the plain versions below, which repeat the
 kernels' arithmetic block by block: scores and exp in the accumulation type
 (f32; f64 for f64 inputs), the probabilities rounded to the input type
@@ -140,6 +143,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, sm_scale: float) -> Tensor:
     """Multi-head attention, (B, H, N, hd) -> (B, H, N, hd), differentiable
-    in q, k and v.  On CUDA tensors it launches the kernels (bf16, hd 64) or
-    raises; on CPU tensors it runs the plain versions."""
+    in q, k and v.  On CUDA tensors it launches the kernels, bf16 or f32 at
+    hd 64, or raises (f16, f64, another hd); on CPU tensors it runs the
+    plain versions at any float type."""
     return _FlashAttention.apply(q, k, v, float(sm_scale))

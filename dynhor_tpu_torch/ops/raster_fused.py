@@ -45,7 +45,7 @@ Tensor = torch.Tensor
 
 _BIG_Z = 3.0e38  # "no hit" depth sentinel
 _ROW = 16  # floats per packed face record
-_PLAIN_CHUNK = 128  # slots per step of the plain versions (memory knob)
+_PLAIN_CHUNK = 128  # default slots per step of the plain versions (a memory knob)
 
 
 class CompactTiles(NamedTuple):
@@ -146,7 +146,7 @@ def _softplus(x: Tensor) -> Tensor:
 
 def tile_mass_depth_plain(
     rows: Tensor, counts: Tensor, tile: int, tiles_w: int, sigma: float,
-    znear: float,
+    znear: float, chunk: int = _PLAIN_CHUNK,
 ):
     """Plain version of K1.  rows (B, T, M, 16) f32, counts (B, T) int32.
 
@@ -155,6 +155,11 @@ def tile_mass_depth_plain(
     the nearest edge), the min interpolated depth
     over covering faces with z > znear, and its slot (strict <: the first
     slot wins).  Returns mass, zmin (B, T, P) f32 and jbest (B, T, P) int32.
+
+    The slots go ``chunk`` at a time, merged as the kernel merges its work
+    items: masses summed in chunk order, and a chunk's (depth, slot) taken
+    only where it is strictly smaller, so the hard outputs do not depend on
+    ``chunk``.
     """
     b, t_rows, m, _ = rows.shape
     p = tile * tile
@@ -163,9 +168,9 @@ def tile_mass_depth_plain(
     zmin = rows.new_full((b, t_rows, p), _BIG_Z)
     jbest = torch.zeros((b, t_rows, p), dtype=torch.int64, device=rows.device)
     slot = torch.arange(m, device=rows.device)
-    for s in range(0, m, _PLAIN_CHUNK):
-        r = rows[:, :, None, s : s + _PLAIN_CHUNK]  # (B, T, 1, C, 16)
-        keep = (slot[s : s + _PLAIN_CHUNK] < counts[..., None])[:, :, None, :]
+    for s in range(0, m, chunk):
+        r = rows[:, :, None, s : s + chunk]  # (B, T, 1, C, 16)
+        keep = (slot[s : s + chunk] < counts[..., None])[:, :, None, :]
         (w0, w1, w2), inside, sign, _, d2, visible = _pair_geometry(r, px, py)
         logit = sign * torch.sqrt(d2.clamp_min(1e-12)) / sigma
         live = visible & keep
@@ -181,7 +186,7 @@ def tile_mass_depth_plain(
 
 def tile_mass_grad_plain(
     rows: Tensor, counts: Tensor, g: Tensor, tile: int, tiles_w: int,
-    sigma: float,
+    sigma: float, chunk: int = _PLAIN_CHUNK,
 ) -> Tensor:
     """Plain version of K2: the analytic VJP of K1's mass w.r.t. each slot's
     six xy values, given g = d(loss)/d(mass) (B, T, P).
@@ -193,7 +198,8 @@ def tile_mass_grad_plain(
     gradient.  Returns (B, T, M, 6) [x0 y0 x1 y1 x2 y2] f32 cotangents, zero
     for slots >= count.
 
-    Works in f32, as the kernel does.
+    Works in f32, as the kernel does, ``chunk`` slots at a time (each slot's
+    sums are the same whatever ``chunk``).
     """
     b, t_rows, m, _ = rows.shape
     px, py = _tile_pixels(t_rows, tile, tiles_w, rows.device)
@@ -201,9 +207,9 @@ def tile_mass_grad_plain(
     slot = torch.arange(m, device=rows.device)
     m_used = int(counts.max()) if counts.numel() else 0  # slots past it get 0
     out = []
-    for s in range(0, m_used, _PLAIN_CHUNK):
-        r = rows[:, :, None, s : s + _PLAIN_CHUNK]
-        keep = (slot[s : s + _PLAIN_CHUNK] < counts[..., None])[:, :, None, :]
+    for s in range(0, m_used, chunk):
+        r = rows[:, :, None, s : s + chunk]
+        keep = (slot[s : s + chunk] < counts[..., None])[:, :, None, :]
         _, _, sign, segs, d2, visible = _pair_geometry(r, px, py)
         d2s = d2.clamp_min(1e-12)
         logit = sign * torch.sqrt(d2s) / sigma

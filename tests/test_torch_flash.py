@@ -221,3 +221,57 @@ def test_tma_layout_refuses_what_tma_cannot_read(case):
     assert x.shape == (2, 3, 9, 64)
     with pytest.raises(ValueError):
         kernels.tma_layout(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
+def test_flash_dtype_rule(dtype):
+    """The K5 dispatch's dtype rule needs no card: bf16 and f32 each have
+    kernels of their own, f16 and f64 are refused (no cast, no plain version
+    on the card)."""
+    if dtype in (torch.bfloat16, torch.float32):
+        assert kernels.flash_dtype(dtype) is dtype
+    else:
+        with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+            kernels.flash_dtype(dtype, "q")
+
+
+def test_tma_layout_of_f32_views():
+    """The f32 kernels read 16-byte pieces of rows as the bf16 kernels' tensor
+    maps do: the same layout rule in bytes, for 4-byte values."""
+    b, n, h = 2, 37, 3
+    qkv = torch.zeros((b, n, 3, h, 64))
+    row = 3 * h * 64 * 4
+    for x in qkv.permute(2, 0, 3, 1, 4):
+        assert kernels.tma_layout(x) == ((64, n, h, b), (row, 256, n * row))
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.tma_layout(torch.zeros((2, 3, 9, 66))[..., :64])  # rows 264 bytes apart
+    with pytest.raises(ValueError, match="2- or 4-byte"):
+        kernels.tma_layout(torch.zeros((2, 3, 9, 64), dtype=torch.float64))
+
+
+def test_f32_vit_with_flash_matches_jax_attention():
+    """The port's ViT at head dim 64 (two heads of a 128-wide tiny config)
+    with f32 parameters and attn_impl="flash" (on the CPU the plain
+    versions, the f32 kernels' arithmetic) against the JAX ViT's written-out
+    ``_attention``: tokens and d(tokens)/d(rgb) within 1e-5 (f32 sums in
+    another order)."""
+    kw = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2, smaller_edge_size=32, pos_grid=4)
+    cfg_j = JD.DinoConfig(**kw)
+    params_j = JD.init_params(jax.random.PRNGKey(0), cfg_j)
+    rng = np.random.default_rng(0)
+    params_j = jax.tree.map(
+        lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params_j
+    )
+    params_t = TD.params_from_jax(jax.tree.map(np.asarray, params_j))
+    rgb = rng.random((2, 3, 48, 48)).astype(np.float32)
+    ct = rng.standard_normal((2, 16, 128)).astype(np.float32)
+    tok_j, vjp = jax.vjp(
+        lambda x: JD.forward_tokens_from_crop(params_j, x, cfg_j, remat=False), jnp.asarray(rgb)
+    )
+    (g_j,) = vjp(jnp.asarray(ct))
+    x = torch.tensor(rgb, requires_grad=True)
+    tok_t = TD.forward_tokens_from_crop(params_t, x, TD.DinoConfig(attn_impl="flash", **kw))
+    (tok_t * torch.tensor(ct)).sum().backward()
+    assert tok_t.dtype == torch.float32
+    np.testing.assert_allclose(tok_t.detach().numpy(), np.asarray(tok_j), atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), atol=1e-5)
