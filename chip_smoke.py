@@ -14,13 +14,16 @@ Phases; any failure exits non-zero.
    timed with CUDA events; the whole fused raster (forward and d(verts))
    is also held against the plain versions on the CPU.  The tile counts'
    distribution and the work items they make (K1/K2 run on a work list cut
-   by the counts) are printed.  Then K1 and K2 on rows with adversarial
+   by the counts) are printed.  Then K1, K2 and K3 on rows with adversarial
    counts (one row at the cap and the rest empty, counts at the work list's
    chunk edges, none, equal depths in two chunks of one row, 64 frames x 80
-   rows): hard outputs exactly the plain version's, two runs bit-identical.
-2b. K3 (the prior views' depth raster) against its plain version at the
-   prior path's shapes: a chunk of 25 views at window 176 and a prescreen
-   chunk of 50 views at window 112, caps counted for them.
+   rows; K3 reads the same slots' records through shuffled face ids): hard
+   outputs exactly the plain version's, two runs bit-identical.
+2b. K3 (the prior views' depth raster, on the work list, reading each
+   slot's record through the bins' face ids) against its plain version at
+   the prior path's shapes: a chunk of 25 views at window 176 and a
+   prescreen chunk of 50 views at window 112, caps counted for them; hit
+   masks equal, pix_to_face and zbuf exactly equal.
 2c. K5 (flash attention: forward, delta, dK/dV, dQ) against its plain
    versions in bf16 at the fine step's shape (8, 12, 1370, 64) and the
    prescreen's (50, 12, 65, 64), and at token counts across the kernels'
@@ -30,8 +33,12 @@ Phases; any failure exits non-zero.
    beside them (the port never calls it).  A "K5 bwd" row holds the whole
    backward (its three kernels) against the function's bound; each kernel
    prints its share of its bound.  The same in f32 (the f32 kernels, within
-   1e-5; bounds at the f32 peak), at the fine step's shape and the tile
-   edges.
+   1e-5), at the fine step's shape and the tile edges; their bound counts
+   each product as the 3xTF32 route does it (three TF32 products, 165
+   TFLOP/s), and the rows also carry the bound on the CUDA cores (f32 FMAs,
+   67 TFLOP/s) under ``bound_f32_simt_ms``.  Every row with a library time
+   (forward and whole backward, both dtypes) times kernel and library in
+   turns (kernel, library, library, kernel, twice) and reports the medians.
 2d. K4 (the separate soft silhouette) at the fine step's shapes: K4a and
    K4b (K2's kernel on K4a's rows) against their plain versions, timed
    beside their bounds; ``soft_silhouette_kernel`` forward and d(verts)
@@ -112,6 +119,9 @@ PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = {"K1": 90, "K2": 100, "K3": 23, "K4a": 81, "K4b": 100}
 K3_OPS_INSIDE = 9
 PEAK_BF16 = 989e12  # tensor cores, dense
+# The cheapest f32-accurate route for an f32 matrix product on this card:
+# three TF32 tensor-core products (495 TFLOP/s dense) per product, so 165.
+PEAK_TF32_3X = 495e12 / 3
 PRIOR_VIEWS = 6000  # io/config.py prior.num_views
 JOINT_STEPS = 200  # io/config.py system.joint_num_iterations
 CPU_FRAMES = 2  # frames of phase 2d's card-vs-CPU check
@@ -139,6 +149,20 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(kernel, library, rounds: int = 2, reps: int = 10) -> tuple[float, float, list, list]:
+    """Kernel and library timed in turns (kernel, library, library, kernel)
+    ``rounds`` times, each sample a ``cuda_ms`` over ``reps`` launches;
+    returns (kernel median, library median, kernel samples, library
+    samples)."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel, reps))
+        ls.append(cuda_ms(library, reps))
+        ls.append(cuda_ms(library, reps))
+        ks.append(cuda_ms(kernel, reps))
+    return float(np.median(ks)), float(np.median(ls)), ks, ls
 
 
 K5_KEYS = ("K5 fwd", "K5 delta", "K5 dkv", "K5 dq")
@@ -441,11 +465,24 @@ def crafted_rows(dev, b, t, m, counts, seed, tie=None):
     return torch.as_tensor(rec).to(dev), torch.as_tensor(counts).to(dev)
 
 
+def as_records(rows, seed):
+    """K3's inputs holding the same slots as packed tile rows (b, t, m, 16):
+    every slot's record at a shuffled place of a (b, t * m, 16) face pool,
+    and indices (b, t, m) int32 pointing at it."""
+    b, t, m, _ = rows.shape
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(t * m)).to(rows.device)
+    rows_all = torch.empty((b, t * m, 16), dtype=rows.dtype, device=rows.device)
+    rows_all[:, perm] = rows.reshape(b, t * m, 16)
+    return rows_all, perm.to(torch.int32).reshape(1, t, m).expand(b, t, m).contiguous()
+
+
 def phase_adversarial_counts(dev, card: str) -> None:
-    """K1 and K2 against their plain versions on rows whose counts the work
-    list finds hardest; hard outputs exactly equal, mass within 1e-4
+    """K1, K2 and K3 against their plain versions on rows whose counts the
+    work list finds hardest; hard outputs exactly equal, mass within 1e-4
     relative, d(xy) within rtol 1e-4 and atol 1e-5 x max, and two runs
-    bit-identical.  These launches are not the main path's."""
+    bit-identical.  K3 reads the same slots through shuffled face ids
+    (``as_records``) and must give K1's plain zbuf and slots.  These
+    launches are not the main path's."""
     from dynhor_tpu_torch import kernels
     from dynhor_tpu_torch.ops import raster_fused as RFU
 
@@ -491,14 +528,27 @@ def phase_adversarial_counts(dev, card: str) -> None:
             check(int((won == slots[0]).sum()) > 0 and not bool(
                 torch.isin(won, torch.tensor(slots[1:], device=dev)).any()),
                 f"equal depths in two chunks: the first slot did not win ({name})")
+        rows_all, indices = as_records(rows, 3)
+        k3_args = (rows_all, indices, counts, TILE, 16, 1e-2)
+        k3_runs = [kernels.depth_fwd(*k3_args) for _ in range(2)]
+        zmin3_p, jbest3_p = RFU.tile_depth_plain(*k3_args, chunk=chunk)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(*k3_runs)),
+              f"K3 differs between two runs on the same inputs ({name})")
+        check(torch.equal(zmin3_p, zmin_p) and torch.equal(jbest3_p, jbest_p),
+              f"K3's plain version differs from K1's hard outputs ({name})")
+        check(torch.equal(k3_runs[0][0], zmin_p) and torch.equal(k3_runs[0][1], jbest_p),
+              f"K3 zbuf or pix_to_face differ from the plain version ({name})")
         ms = (cuda_ms(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2)),
-              cuda_ms(lambda: kernels.sil_bwd(rows, counts, g, *args)))
+              cuda_ms(lambda: kernels.sil_bwd(rows, counts, g, *args)),
+              cuda_ms(lambda: kernels.depth_fwd(*k3_args)))
         print(
             f"[adversarial] {name}: rows {tuple(rows.shape)}; {count_line(counts)}; hard outputs "
             f"equal, two runs bit-identical, mass max rel err {mass_err:.3g}, d(xy) max abs err "
             f"{float((dxy - dxy_p).abs().max()):.3g} (max {scale:.3g})"
             + (f", slot {tie[1][0]} wins the tie over {tie[1][1:]}" if tie else "")
-            + f"; K1 {ms[0]:.4f} ms, K2 {ms[1]:.4f} ms — {card}", flush=True,
+            + f"; K3 through shuffled face ids equal too; K1 {ms[0]:.4f} ms, K2 {ms[1]:.4f} ms, "
+            f"K3 {ms[2]:.4f} ms — {card}", flush=True,
         )
 
 
@@ -576,8 +626,10 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
     take exp2 where the other takes exp, so a value near a rounding boundary
     may land one bf16 step apart: 2^-8 relative, 2^-7 at a binade's lower
     edge); 1e-5 for the f32 log-sum-exp and delta.  f32: 1e-5 for all (f32
-    sums in another order).  Bounds: bf16 products at the tensor cores'
-    peak, f32 ones (and delta) at the f32 peak."""
+    sums in another order; the kernels' 3xTF32 products drop lo x lo, below
+    2^-21 of each product).  Bounds: bf16 products at the tensor cores'
+    peak, f32 ones at the 3xTF32 rate (and on the CUDA cores beside it),
+    delta at the f32 peak."""
     from dynhor_tpu_torch import kernels
     from dynhor_tpu_torch.ops import flash_attention as FA
 
@@ -603,11 +655,41 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
             + ", ".join(f"{name} {e:.3g} ({m:.3g})" for name, (e, m) in errs.items()), flush=True,
         )
 
+        def kernel_bwd():
+            delta = kernels.flash_bwd_delta(o_p, g)
+            kernels.flash_bwd_dkv(q, k, v, g, lse_p, delta, scale)
+            kernels.flash_bwd_dq(q, k, v, g, lse_p, delta, scale)
+
+        # The library call, timed here and used nowhere in the port.
+        ql, kl, vl = (x.detach().contiguous().requires_grad_(True) for x in (q, k, v))
+        gl = g.contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def library_fwd():
+            with torch.no_grad():
+                return sdpa(ql, kl, vl)
+
+        out_l = sdpa(ql, kl, vl)
+        # Forward and whole backward in turns with the library's calls.
+        fwd_ms, lib_fwd, fwd_k, fwd_l = in_turns(lambda: kernels.flash_fwd(q, k, v, scale),
+                                                 library_fwd)
+        bwd_ms, lib_bwd, bwd_k, bwd_l = in_turns(
+            kernel_bwd,
+            lambda: torch.autograd.grad(out_l, (ql, kl, vl), gl, retain_graph=True),
+        )
+        lib_both = cuda_ms(lambda: sdpa(ql, kl, vl).backward(gl), 10)
+        print(
+            f"[k5] {tname} N={n} in turns (kernel, library, library, kernel, twice), ms: forward "
+            f"kernel {[round(x, 4) for x in fwd_k]}, library {[round(x, 4) for x in fwd_l]}; "
+            f"backward kernel {[round(x, 4) for x in bwd_k]}, library "
+            f"{[round(x, 4) for x in bwd_l]} — {card}", flush=True,
+        )
         ms = {
-            "K5 fwd": cuda_ms(lambda: kernels.flash_fwd(q, k, v, scale)),
+            "K5 fwd": fwd_ms,
             "K5 delta": cuda_ms(lambda: kernels.flash_bwd_delta(o_p, g)),
             "K5 dkv": cuda_ms(lambda: kernels.flash_bwd_dkv(q, k, v, g, lse_p, delta_p, scale)),
             "K5 dq": cuda_ms(lambda: kernels.flash_bwd_dq(q, k, v, g, lse_p, delta_p, scale)),
+            "K5 bwd": bwd_ms,
         }
         plain_fwd = cuda_ms(lambda: FA.flash_fwd_plain(q, k, v, scale), reps=3)
         plain_delta = cuda_ms(lambda: FA.flash_delta_plain(o_p, g), reps=3)
@@ -617,19 +699,7 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
             lambda: FA.flash_bwd_plain(q, k, v, g, lse_p, delta_p, scale), reps=3
         )
         plain = {"K5 fwd": plain_fwd, "K5 delta": plain_delta, "K5 dkv": plain_bwd,
-                 "K5 dq": plain_bwd}
-
-        # The library call, timed here and used nowhere in the port.
-        ql, kl, vl = (x.detach().contiguous().requires_grad_(True) for x in (q, k, v))
-        gl = g.contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: sdpa(ql, kl, vl), 10)
-        lib_both = cuda_ms(lambda: sdpa(ql, kl, vl).backward(gl), 10)
-        out_l = sdpa(ql, kl, vl)
-        lib_bwd = cuda_ms(
-            lambda: torch.autograd.grad(out_l, (ql, kl, vl), gl, retain_graph=True), 10
-        )
+                 "K5 dq": plain_bwd, "K5 bwd": plain_delta + plain_bwd}
 
         # Bounds: operations in the inputs' type (a product of an (N, d) by
         # a (d, N) or (N, N) by (N, d) matrix is 2 N^2 d), bytes with each
@@ -639,10 +709,12 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
         # function's five without counting any twice, S with dK and dV on the
         # dK/dV pass, dP with dQ on the dQ pass; the "K5 bwd" row carries the
         # whole backward (delta, then both passes) against the whole bound
-        # and the library's backward.
+        # and the library's backward.  f32 products count as the 3xTF32
+        # route does them (PEAK_TF32_3X); the bound on the CUDA cores (f32
+        # FMAs at PEAK_FLOPS) rides beside it.
         prod = 2 * b * h * n * n * d
         tensor = b * h * n * d * q.element_size()  # bytes of one (B, H, N, d) tensor
-        peak_products = PEAK_FLOPS if f32 else PEAK_BF16
+        peak_products = PEAK_TF32_3X if f32 else PEAK_BF16
         vec = b * h * n * 4  # bytes of one f32 (B, H, N) tensor
         work = {
             "K5 fwd": (2 * prod, 4 * tensor + vec),  # S, P V; q k v -> o, lse
@@ -652,9 +724,6 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
             # q, k, v, o, dO -> dq, dk, dv, with the log-sum-exp
             "K5 bwd": (5 * prod, 8 * tensor + vec),
         }
-        bwd_keys = ("K5 delta", "K5 dkv", "K5 dq")
-        ms["K5 bwd"] = sum(ms[key] for key in bwd_keys)
-        plain["K5 bwd"] = plain_delta + plain_bwd
         library = {"K5 fwd": lib_fwd, "K5 bwd": lib_bwd}
         rows = []
         for key in (*K5_KEYS, "K5 bwd"):
@@ -664,13 +733,19 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
             err = {"K5 fwd": errs["o"][0], "K5 delta": errs["delta"][0],
                    "K5 dkv": max(errs["dk"][0], errs["dv"][0]), "K5 dq": errs["dq"][0],
                    "K5 bwd": max(errs[name][0] for name in ("delta", "dq", "dk", "dv"))}[key]
-            rows.append(kernel_row(
+            row = kernel_row(
                 key + sfx + " flash_attention",
                 f"dynhor_tpu_torch/csrc/flash_attention{'_f32' if f32 else ''}.cu",
                 "dynhor_tpu/models/dino.py:202 _flash_attention and "
                 "dynhor_tpu/models/dino.py:243 _splash_attention",
                 err, ms[key], plain[key], ops, nbytes, peak, library.get(key),
-            ))
+            )
+            simt = ""
+            if f32:
+                row["bound_f32_simt_ms"] = max(ops / PEAK_FLOPS * 1e3, t_bytes)
+                simt = (f"; on the CUDA cores {row['bound_f32_simt_ms']:.5f} ms "
+                        f"({100 * row['bound_f32_simt_ms'] / ms[key]:.1f} %)")
+            rows.append(row)
             bound = max(t_ops, t_bytes)
             lib = library.get(key)
             lib_txt = (f"scaled_dot_product_attention {lib:.4f} ms" if lib is not None
@@ -679,7 +754,8 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
                 f"[k5] {tname} N={n} {key}{sfx}: {ms[key]:.4f} ms, "
                 f"{100 * bound / ms[key]:.1f} % of its bound "
                 f"{bound:.5f} ms ({ops:.4e} ops = {t_ops:.5f} ms, {nbytes} bytes = "
-                f"{t_bytes:.5f} ms); plain {plain[key]:.3f} ms; {lib_txt} — {card}", flush=True,
+                f"{t_bytes:.5f} ms){simt}; plain {plain[key]:.3f} ms; {lib_txt} — {card}",
+                flush=True,
             )
         print(
             f"[k5] {tname} N={n} forward {ms['K5 fwd']:.4f} ms (scaled_dot_product_attention "
@@ -1238,19 +1314,22 @@ def uniform_rotations(n: int, seed: int, device):
     return G.rotations_from_uniforms(torch.as_tensor(x, device=device))
 
 
-def depth_pair_work(rows, counts, tiles_w) -> tuple[int, int]:
+def depth_pair_work(rows_all, indices, counts, tiles_w) -> tuple[int, int]:
     """(visible, inside) pixel-slot pairs of K3's input: pairs of a pixel
     and a slot below the tile's count whose face is visible, and those of
     them whose face covers the pixel (the plain version's inside test)."""
     from dynhor_tpu_torch.ops import raster_fused as RFU
 
-    b, t_rows, m, _ = rows.shape
-    px, py = RFU._tile_pixels(t_rows, TILE, tiles_w, rows.device)
-    slot = torch.arange(m, device=rows.device)
+    b, t_rows, m = indices.shape
+    px, py = RFU._tile_pixels(t_rows, TILE, tiles_w, rows_all.device)
+    slot = torch.arange(m, device=rows_all.device)
     visible = inside = 0
     for s in range(0, int(counts.max()), 128):
-        r = rows[:, :, None, s : s + 128]
-        live = (slot[s : s + 128] < counts[..., None])[:, :, None, :] & (r[..., 6] > 0.5)
+        idx = indices[:, :, s : s + 128].long()
+        c = idx.shape[2]
+        r = torch.gather(rows_all, 1, idx.reshape(b, -1, 1).expand(-1, -1, 16))
+        r = r.reshape(b, t_rows, 1, c, 16)
+        live = (slot[s : s + c] < counts[..., None])[:, :, None, :] & (r[..., 6] > 0.5)
         _, ins, _ = RFU._barycentric(r, px, py)
         visible += int(live.sum()) * TILE * TILE
         inside += int((ins & live).sum())
@@ -1278,8 +1357,8 @@ def phase_depth_kernel(dev, card: str) -> dict:
             verts @ R.transpose(1, 2) + t[:, None], TP._window_camera(cfg, window, dev)
         )
         cap = TP.required_prior_cap(verts, faces, R, cfg, window, float(dist), center)
-        rows, counts, tw, _, _ = RFU.depth_inputs(vp, faces, (window, window), TILE, cap)
-        args = (rows, counts, TILE, tw, 1e-2)
+        rows_all, indices, counts, tw, _ = RFU.depth_inputs(vp, faces, (window, window), TILE, cap)
+        args = (rows_all, indices, counts, TILE, tw, 1e-2)
         zmin, jbest = kernels.depth_fwd(*args)
         zmin_p, jbest_p = RFU.tile_depth_plain(*args)
         torch.cuda.synchronize()
@@ -1288,19 +1367,26 @@ def phase_depth_kernel(dev, card: str) -> dict:
         z_err = float((zmin - zmin_p)[hit].abs().max()) if bool(hit.any()) else 0.0
         n_mism = int((hit & (jbest != jbest_p)).sum())
         pairs = int(counts.sum())
-        b, t_rows = counts.shape
+        b, t_rows, m = indices.shape
         ms = cuda_ms(lambda: kernels.depth_fwd(*args))
         plain_ms = cuda_ms(lambda: RFU.tile_depth_plain(*args), reps=3)
-        vis_pairs, in_pairs = depth_pair_work(rows, counts, tw)
+        vis_pairs, in_pairs = depth_pair_work(rows_all, indices, counts, tw)
         ops = vis_pairs * OPS_PER_PAIR["K3"] + in_pairs * K3_OPS_INSIDE
-        nbytes = pairs * 64 + b * t_rows * 4 + b * t_rows * TILE * TILE * 8
+        # Read once: the per-face records, the face ids below each count and
+        # the counts; written: depth and slot per pixel.
+        nbytes = rows_all.numel() * 4 + pairs * 4 + b * t_rows * 4 + b * t_rows * TILE * TILE * 8
         t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        busy = counts[counts > 0].float()
         print(
             f"[k3] {stage}: {n_views} views, window {window} ({t_rows} tiles), counted cap "
-            f"{cap}, rows {tuple(rows.shape)}; sum(counts) {pairs} face-tile pairs, max "
-            f"count {int(counts.max())}, mean {pairs / (b * t_rows):.1f} per tile; hit "
-            f"masks equal {same_hit}, pix_to_face mismatches {n_mism} over {int(hit.sum())} "
-            f"hit pixels, zbuf max abs err {z_err:.3g}", flush=True,
+            f"{cap}, indices {tuple(indices.shape)} into records {tuple(rows_all.shape)}; "
+            f"sum(counts) {pairs} face-tile pairs, max count {int(counts.max())}, mean "
+            f"{pairs / (b * t_rows):.1f} per tile ({float(busy.mean()) if busy.numel() else 0.0:.1f} "
+            f"over the {busy.numel()} non-empty), "
+            f"{int(((counts.long() + kernels.MASS_CHUNK - 1) // kernels.MASS_CHUNK).sum())} work "
+            f"items of {kernels.MASS_CHUNK} slots; hit masks equal {same_hit}, pix_to_face "
+            f"mismatches {n_mism} over {int(hit.sum())} hit pixels, zbuf max abs err {z_err:.3g}",
+            flush=True,
         )
         print(
             f"[k3] {stage}: K3 {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1311,7 +1397,7 @@ def phase_depth_kernel(dev, card: str) -> dict:
         )
         check(same_hit, f"K3 hit masks differ ({stage})")
         check(n_mism == 0, f"K3 pix_to_face differs at {n_mism} pixels ({stage})")
-        check(z_err <= 1e-5, f"K3 zbuf error {z_err} > 1e-5 ({stage})")
+        check(z_err == 0.0, f"K3 zbuf error {z_err} != 0 ({stage})")
         if row is None:
             row = kernel_row(
                 "K3 tile_depth", "dynhor_tpu_torch/csrc/raster_fused.cu",
@@ -1329,11 +1415,14 @@ class _Stages:
     checks that it recorded exactly the two stages."""
 
     def __init__(self, fn):
-        self.fn, self.calls = fn, []
+        self.fn, self.calls, self.peaks = fn, [], []
 
     def __call__(self, *args, **kw):
         out, sec = wall(lambda: self.fn(*args, **kw))
         self.calls.append((int(args[6].shape[0]), sec))
+        # The peak since phase_priors reset it: after the first stage, the
+        # prescreen's own.
+        self.peaks.append(torch.cuda.max_memory_allocated())
         return out
 
 
@@ -1431,7 +1520,8 @@ def phase_priors(dev, card: str, kernel_rows: list[dict], dcfg) -> dict:
         f"{window} in {t_hi:.3f} s; counted caps {caps} (prescreen, rescore); K3 launches "
         f"{launches['K3']} = view chunks {chunks}; attn_impl {dcfg.attn_impl}: K5 forward "
         f"launches {launches['K5 fwd']} = depth {dcfg.depth} x {vit_calls} ViT calls; peak "
-        f"{peak / 2**30:.2f} GiB allocated — {card}", flush=True,
+        f"{peak / 2**30:.2f} GiB allocated (prescreen {stages.peaks[0] / 2**30:.3f} GiB) — {card}",
+        flush=True,
     )
 
     def gate_and_init():
@@ -1528,8 +1618,9 @@ def prior_breakdown(dev, card, dparams, dcfg, mesh, view_rots, crops, masks, gt_
                   "other": 0.0}
         for e in evs:
             name = e.key.lower()
-            if "depth_fwd_kernel" in name:
-                key = "K3"
+            if any(k in name for k in ("depth_fwd_kernel", "depth_merge_kernel",
+                                       "chunk_prefix_kernel")):
+                key = "K3"  # with its work list's pre-pass and merge pass
             elif "flash_" in name and "_kernel" in name:
                 key = "K5"
             elif "sort" in name or "topk" in name or "radix" in name or "select" in name:

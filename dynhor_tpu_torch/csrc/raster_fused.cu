@@ -4,7 +4,7 @@
 //
 // K1 replaces dynhor_tpu/ops/raster_pallas.py:_fused_fwd_kernel, K2 replaces
 // dynhor_tpu/ops/raster_pallas.py:_sil_bwd_kernel, K3 replaces
-// dynhor_tpu/ops/raster_pallas.py:_depth_fwd_kernel, K4a replaces
+// dynhor_tpu/ops/raster_pallas.py:_depth_fwd_kernel (:205), K4a replaces
 // dynhor_tpu/ops/silhouette_pallas.py:_fwd_kernel.  K4b
 // (dynhor_tpu/ops/silhouette_pallas.py:_bwd_kernel) computes K2's function:
 // both run _tile_mass_grad_analytic over a tile's slots, K4b over every
@@ -21,7 +21,9 @@
 //   slots [0, count) hold the tile's candidate faces in ascending face id,
 //   padding slots have vis = 0.  A tile row t's pixel origin is
 //   ((t % tiles_w) * tile, (t / tiles_w) * tile) (the packing shifts the xy
-//   values of compacted tiles into that frame).
+//   values of compacted tiles into that frame).  K3 takes rows_all: (B, F,
+//   16) per-face records of the same layout, and indices: (n_rows, m) i32,
+//   slot j of row r holding face indices[r, j] of frame r / t_rows.
 //
 // What bounds them.  Each does about a hundred floating-point operations per
 // (pixel, slot) pair and reads a slot's 64-byte record once, so operations
@@ -31,14 +33,14 @@
 // scene), and one block per tile left the card nearly idle while the most
 // loaded tiles finished.
 //
-// K1, K2, K4a and K4b therefore run on a work list cut by the counts, built
+// K1, K2, K3, K4a and K4b therefore run on a work list cut by the counts, built
 // on the device in the same entry point (no host sync):
 // - a work item is (row, chunk c of S slots) for c < ceil(count / S); a
 //   one-block pre-pass writes each row's first item, start[r] = sum over
 //   r' < r of ceil(count[r'] / S), and the total at start[n_rows].  Rows of
 //   count 0 cost no item.
-// - the grid is persistent: as many blocks as the SMs hold at once.  K1 and
-//   K4a (S = the wrapper's chunk, at most 128, one thread per pixel, the
+// - the grid is persistent: as many blocks as the SMs hold at once.  K1, K3
+//   and K4a (S = the wrapper's chunk, at most 128, one thread per pixel, the
 //   chunk's records staged in shared memory) give each block one contiguous
 //   range of ceil(total / blocks) items, so a block walks consecutive chunks
 //   of consecutive rows and sums a row's chunks in registers in slot order.
@@ -64,15 +66,21 @@
 // when its record is staged, not once per pixel, with the same expressions,
 // so every value rounds as it did.
 //
-// K3 keeps one block per (view, tile), K1's former layout: one thread per
-// pixel, 128 records staged per pass, a loop up to the tile's count.  It
-// does a quarter of K1's work per pair (about twenty operations: the
-// barycentrics and the inside test; the depth and its test only where the
-// pixel is inside the face) and still reads a 64-byte record per slot and
-// writes 8 bytes per pixel, so operations bound it too.  The TPU
+// K3 runs on the same work list with the same body (one template,
+// tile_fwd<kMass, kDepth, kIndexed>): the depth and its slot without the
+// mass, about twenty operations per pair (the barycentrics and the inside
+// test; the depth and its test only where the pixel is inside the face),
+// so per pair it is the cheapest of the four and the imbalance of the counts
+// (a prescreen chunk's heaviest tile holds 28x the mean) set its time when
+// it ran one block per (view, tile).  It reads no packed rows: a slot's
+// record is rows_all[b, indices[b, t, j]] (the per-face records and the
+// bins' face ids), read when the slot is staged, so no (B, T, M, 16) copy of
+// the records exists on its path.  bin_faces keeps each tile's faces as a
+// prefix of its row, so the count alone masks the padding.  Its partials
+// (depth, slot) merge as K1's do, in chunk order with a strict <.  The TPU
 // version's 8 tiles per program and 512-slot chunks with a clamped
 // overlapping last chunk were VMEM blocking.  The view axis is part of the
-// grid, so one launch renders a whole chunk of prior views.
+// rows, so one launch renders a whole chunk of prior views.
 //
 // K4a is K1 without the depth: the same code (one template,
 // mass_fwd_kernel<kDepth>), 81 of K1's 90 operations per pair and 4 of its
@@ -94,10 +102,9 @@
 
 namespace {
 
-constexpr int kChunk = 128;  // K3: slot records staged per pass
 constexpr int kRow = 16;     // floats per slot record
 constexpr float kBigZ = 3.0e38f;
-constexpr int kStage = 128;  // K1/K4a: the most slots of a work item
+constexpr int kStage = 128;  // K1/K3/K4a: the most slots of a work item
 constexpr int kLanes = 32;   // K2/K4b: slots of a work item, one a lane
 constexpr int kWarps = 8;    // K2/K4b: warps of a block, a stripe of pixels each
 constexpr int kScan = 1024;  // threads of the work list's pre-pass
@@ -105,27 +112,6 @@ constexpr int kScan = 1024;  // threads of the work list's pre-pass
 struct Seg {
   float t, dx, dy, d2;
 };
-
-// K3's per (pixel, slot) barycentrics and inside test, in the plain
-// version's order of operations (ops/raster_fused.py:_barycentric).
-struct Bary {
-  float w0, w1, w2;
-  bool inside, nondegen;
-};
-
-__device__ __forceinline__ Bary barycentric(const float* r, float px, float py) {
-  const float x0 = r[0], y0 = r[1], x1 = r[2], y1 = r[3], x2 = r[4], y2 = r[5];
-  Bary b;
-  const float area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0);
-  const bool degen = fabsf(area) < 1e-12f;
-  const float inv_area = degen ? 0.0f : 1.0f / area;
-  b.w0 = ((x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)) * inv_area;
-  b.w1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) * inv_area;
-  b.w2 = ((x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)) * inv_area;
-  b.nondegen = fabsf(area) > 1e-12f;
-  b.inside = (b.w0 >= 0.0f) && (b.w1 >= 0.0f) && (b.w2 >= 0.0f) && b.nondegen;
-  return b;
-}
 
 // The face-only terms of a slot, computed once when its record is staged,
 // in the order of operations of ops/raster_fused.py:_barycentric and _seg.
@@ -181,6 +167,25 @@ __device__ __forceinline__ Seg seg(float abx, float aby, float den, float apx, f
   return {t, dx, dy, fmaf(dx, dx, dy * dy)};
 }
 
+// Per (pixel, visible slot) barycentrics and inside test of K1, K2 and K3,
+// in the plain version's order of operations (ops/raster_fused.py:
+// _barycentric); a visible face's area is no degenerate one, so inv_area is
+// 1 / area there and the inside test needs no area guard.
+struct Bary {
+  float w0, w1, w2;
+  bool inside;
+};
+
+__device__ __forceinline__ Bary barycentric(const Face& f, float a0x, float a0y, float a1x,
+                                            float a1y, float a2x, float a2y) {
+  Bary b;
+  b.w0 = (f.e12x * a1y - f.e12y * a1x) * f.inv_area;
+  b.w1 = (f.e20x * a2y - f.e20y * a2x) * f.inv_area;
+  b.w2 = (f.e01x * a0y - f.e01y * a0x) * f.inv_area;
+  b.inside = (b.w0 >= 0.0f) && (b.w1 >= 0.0f) && (b.w2 >= 0.0f);
+  return b;
+}
+
 // Per (pixel, visible slot) geometry of K1 and K2, in the plain version's
 // order of operations (ops/raster_fused.py:_pair_geometry).
 struct Pair {
@@ -195,11 +200,12 @@ __device__ __forceinline__ Pair pair_geometry(const Face& f, float px, float py)
   const float a0x = px - f.x0, a0y = py - f.y0;
   const float a1x = px - f.x1, a1y = py - f.y1;
   const float a2x = px - f.x2, a2y = py - f.y2;
+  const Bary w = barycentric(f, a0x, a0y, a1x, a1y, a2x, a2y);
   Pair q;
-  q.w0 = (f.e12x * a1y - f.e12y * a1x) * f.inv_area;
-  q.w1 = (f.e20x * a2y - f.e20y * a2x) * f.inv_area;
-  q.w2 = (f.e01x * a0y - f.e01y * a0x) * f.inv_area;
-  q.inside = (q.w0 >= 0.0f) && (q.w1 >= 0.0f) && (q.w2 >= 0.0f);
+  q.w0 = w.w0;
+  q.w1 = w.w1;
+  q.w2 = w.w2;
+  q.inside = w.inside;
   q.sign = q.inside ? 1.0f : -1.0f;
   q.s01 = seg(f.e01x, f.e01y, f.den01, a0x, a0y);
   q.s12 = seg(f.e12x, f.e12y, f.den12, a1x, a1y);
@@ -265,17 +271,22 @@ __device__ __forceinline__ int items_per_block(int total, int blocks) {
   return max(1, (total + blocks - 1) / blocks);
 }
 
-// K1 (kDepth) and K4a (!kDepth): one thread per pixel of the tile; block g
-// takes items [g * per, (g + 1) * per).  A row done whole goes to the
-// outputs; the share of a row that straddles blocks goes to partial slot
-// 2 g (the block's first row) or 2 g + 1 (its last).  K4a writes no depth.
-template <bool kDepth>
-__global__ void mass_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ counts,
-                                const int* __restrict__ start, float* __restrict__ mass_out,
-                                float* __restrict__ zmin_out, int* __restrict__ jbest_out,
-                                float* __restrict__ part_mass, float* __restrict__ part_zmin,
-                                int* __restrict__ part_jbest, int n_rows, int t_rows, int m,
-                                int chunk, int tile, int tiles_w, float sigma, float znear) {
+// K1 (kMass, kDepth), K4a (kMass) and K3 (kDepth, kIndexed): one thread per
+// pixel of the tile; block g takes items [g * per, (g + 1) * per).  A row
+// done whole goes to the outputs; the share of a row that straddles blocks
+// goes to partial slot 2 g (the block's first row) or 2 g + 1 (its last).
+// kIndexed: slot j of row r reads rows[(r / t_rows) * n_faces + indices[r *
+// m + j]] (K3's per-face records); otherwise rows[r * m + j].
+template <bool kMass, bool kDepth, bool kIndexed>
+__device__ __forceinline__ void tile_fwd(const float* __restrict__ rows,
+                                         const int* __restrict__ indices,
+                                         const int* __restrict__ counts,
+                                         const int* __restrict__ start, float* __restrict__ mass_out,
+                                         float* __restrict__ zmin_out, int* __restrict__ jbest_out,
+                                         float* __restrict__ part_mass, float* __restrict__ part_zmin,
+                                         int* __restrict__ part_jbest, int n_rows, int t_rows, int m,
+                                         int n_faces, int chunk, int tile, int tiles_w, float sigma,
+                                         float znear) {
   __shared__ Face s_face[kStage];
   const int total = start[n_rows];
   const int per = items_per_block(total, gridDim.x);
@@ -298,18 +309,33 @@ __global__ void mass_fwd_kernel(const float* __restrict__ rows, const int* __res
       const int base = (i - first) * chunk;
       const int n = min(chunk, count - base);
       __syncthreads();  // the previous chunk is fully consumed
-      for (int s = threadIdx.x; s < n; s += blockDim.x)
-        s_face[s] = make_face(rows + (static_cast<size_t>(r) * m + base + s) * kRow);
+      for (int s = threadIdx.x; s < n; s += blockDim.x) {
+        const size_t slot = static_cast<size_t>(r) * m + base + s;
+        const size_t rec = kIndexed ? static_cast<size_t>(r / t_rows) * n_faces + indices[slot]
+                                    : slot;
+        s_face[s] = make_face(rows + rec * kRow);
+      }
       __syncthreads();
       for (int j = 0; j < n; ++j) {
         const Face f = s_face[j];
         if (f.visible == 0.0f) continue;  // adds no mass and no hit
-        const Pair q = pair_geometry(f, px, py);
-        const float logit = q.sign * sqrtf(fmaxf(q.d2, 1e-12f)) / sigma;
-        mass += fmaxf(logit, 0.0f) + log1pf(expf(-fabsf(logit)));
-        if constexpr (kDepth) {
-          const float z = q.w0 * f.z0 + q.w1 * f.z1 + q.w2 * f.z2;
-          if (q.inside && z > znear && z < zmin) {
+        if constexpr (kMass) {
+          const Pair q = pair_geometry(f, px, py);
+          const float logit = q.sign * sqrtf(fmaxf(q.d2, 1e-12f)) / sigma;
+          mass += fmaxf(logit, 0.0f) + log1pf(expf(-fabsf(logit)));
+          if constexpr (kDepth) {
+            const float z = q.w0 * f.z0 + q.w1 * f.z1 + q.w2 * f.z2;
+            if (q.inside && z > znear && z < zmin) {
+              zmin = z;
+              jbest = base + j;
+            }
+          }
+        } else {
+          const Bary w = barycentric(f, px - f.x0, py - f.y0, px - f.x1, py - f.y1, px - f.x2,
+                                     py - f.y2);
+          if (!w.inside) continue;
+          const float z = w.w0 * f.z0 + w.w1 * f.z1 + w.w2 * f.z2;
+          if (z > znear && z < zmin) {
             zmin = z;
             jbest = base + j;
           }
@@ -326,7 +352,7 @@ __global__ void mass_fwd_kernel(const float* __restrict__ rows, const int* __res
       o = (2 * static_cast<size_t>(blockIdx.x) + (first <= i0 ? 0 : 1)) * n_pix + p;
       mo = part_mass, zo = part_zmin, jo = part_jbest;
     }
-    mo[o] = mass;
+    if constexpr (kMass) mo[o] = mass;
     if constexpr (kDepth) {
       zo[o] = zmin;
       jo[o] = jbest;
@@ -334,15 +360,45 @@ __global__ void mass_fwd_kernel(const float* __restrict__ rows, const int* __res
   }
 }
 
-// K1's and K4a's merge pass: rows of count 0 get mass 0, zmin 3e38, slot 0;
-// a row that straddled blocks g0..g1 sums their partials in that order and
-// keeps the first strictly smaller depth.  `blocks` is the forward's grid.
 template <bool kDepth>
-__global__ void mass_merge_kernel(const int* __restrict__ start, float* __restrict__ mass_out,
-                                  float* __restrict__ zmin_out, int* __restrict__ jbest_out,
-                                  const float* __restrict__ part_mass,
-                                  const float* __restrict__ part_zmin,
-                                  const int* __restrict__ part_jbest, int n_rows, int blocks) {
+__global__ void mass_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ counts,
+                                const int* __restrict__ start, float* __restrict__ mass_out,
+                                float* __restrict__ zmin_out, int* __restrict__ jbest_out,
+                                float* __restrict__ part_mass, float* __restrict__ part_zmin,
+                                int* __restrict__ part_jbest, int n_rows, int t_rows, int m,
+                                int chunk, int tile, int tiles_w, float sigma, float znear) {
+  tile_fwd<true, kDepth, false>(rows, nullptr, counts, start, mass_out, zmin_out, jbest_out,
+                                part_mass, part_zmin, part_jbest, n_rows, t_rows, m, 0, chunk,
+                                tile, tiles_w, sigma, znear);
+}
+
+// K3: forward-only hard raster of the prior views, per pixel the min depth
+// over covering visible faces with z > znear and its slot (strict <: the
+// first slot wins), no silhouette math.
+__global__ void depth_fwd_kernel(const float* __restrict__ rows_all,
+                                 const int* __restrict__ indices, const int* __restrict__ counts,
+                                 const int* __restrict__ start, float* __restrict__ zmin_out,
+                                 int* __restrict__ jbest_out, float* __restrict__ part_zmin,
+                                 int* __restrict__ part_jbest, int n_rows, int t_rows, int m,
+                                 int n_faces, int chunk, int tile, int tiles_w, float znear) {
+  tile_fwd<false, true, true>(rows_all, indices, counts, start, nullptr, zmin_out, jbest_out,
+                              nullptr, part_zmin, part_jbest, n_rows, t_rows, m, n_faces, chunk,
+                              tile, tiles_w, 0.0f, znear);
+}
+
+// The merge pass of K1, K3 and K4a: rows of count 0 get mass 0, zmin 3e38,
+// slot 0; a row that straddled blocks g0..g1 sums their partials in that
+// order and keeps the first strictly smaller depth.  `blocks` is the
+// forward's grid.
+template <bool kMass, bool kDepth>
+__device__ __forceinline__ void tile_merge(const int* __restrict__ start,
+                                           float* __restrict__ mass_out,
+                                           float* __restrict__ zmin_out,
+                                           int* __restrict__ jbest_out,
+                                           const float* __restrict__ part_mass,
+                                           const float* __restrict__ part_zmin,
+                                           const int* __restrict__ part_jbest, int n_rows,
+                                           int blocks) {
   const int per = items_per_block(start[n_rows], blocks);
   const int p = threadIdx.x, n_pix = blockDim.x;
   for (int r = blockIdx.x; r < n_rows; r += gridDim.x) {
@@ -355,7 +411,7 @@ __global__ void mass_merge_kernel(const int* __restrict__ start, float* __restri
       for (int g = g0; g <= g1; ++g) {
         const size_t s = (2 * static_cast<size_t>(g) + (g == g0 && first != g * per ? 1 : 0)) *
                              n_pix + p;
-        mass += part_mass[s];
+        if constexpr (kMass) mass += part_mass[s];
         if constexpr (kDepth) {
           if (part_zmin[s] < zmin) {
             zmin = part_zmin[s];
@@ -365,12 +421,30 @@ __global__ void mass_merge_kernel(const int* __restrict__ start, float* __restri
       }
     }
     const size_t o = static_cast<size_t>(r) * n_pix + p;
-    mass_out[o] = mass;
+    if constexpr (kMass) mass_out[o] = mass;
     if constexpr (kDepth) {
       zmin_out[o] = zmin;
       jbest_out[o] = jbest;
     }
   }
+}
+
+template <bool kDepth>
+__global__ void mass_merge_kernel(const int* __restrict__ start, float* __restrict__ mass_out,
+                                  float* __restrict__ zmin_out, int* __restrict__ jbest_out,
+                                  const float* __restrict__ part_mass,
+                                  const float* __restrict__ part_zmin,
+                                  const int* __restrict__ part_jbest, int n_rows, int blocks) {
+  tile_merge<true, kDepth>(start, mass_out, zmin_out, jbest_out, part_mass, part_zmin, part_jbest,
+                           n_rows, blocks);
+}
+
+__global__ void depth_merge_kernel(const int* __restrict__ start, float* __restrict__ zmin_out,
+                                   int* __restrict__ jbest_out,
+                                   const float* __restrict__ part_zmin,
+                                   const int* __restrict__ part_jbest, int n_rows, int blocks) {
+  tile_merge<false, true>(start, nullptr, zmin_out, jbest_out, nullptr, part_zmin, part_jbest,
+                          n_rows, blocks);
 }
 
 // K2 (and K4b): blocks stride over items of 32 slots; lane l takes slot
@@ -449,50 +523,6 @@ __global__ void __launch_bounds__(kLanes* kWarps) sil_bwd_kernel(
       dxy[(static_cast<size_t>(r) * m + base + l) * 6 + k] = sum;
     }
   }
-}
-
-// K3: forward-only hard raster of the prior views.  One block per (view,
-// tile), one thread per pixel, slot records staged 128 at a time as in K1;
-// per pixel the min depth over covering visible faces with z > znear and
-// its slot (strict <: the first slot wins), no silhouette math.
-__global__ void depth_fwd_kernel(const float* __restrict__ rows,
-                                 const int* __restrict__ counts,
-                                 float* __restrict__ zmin_out,
-                                 int* __restrict__ jbest_out, int t_rows, int m,
-                                 int tile, int tiles_w, float znear) {
-  __shared__ float4 s_rows[kChunk * kRow / 4];
-  const int bt = blockIdx.x;
-  const int t = bt % t_rows;
-  const int p = threadIdx.x;
-  const float px = (static_cast<float>(p % tile) + 0.5f) +
-                   static_cast<float>((t % tiles_w) * tile);
-  const float py = (static_cast<float>(p / tile) + 0.5f) +
-                   static_cast<float>((t / tiles_w) * tile);
-  const int count = counts[bt];
-  const float4* src = reinterpret_cast<const float4*>(rows + static_cast<size_t>(bt) * m * kRow);
-  float zmin = kBigZ;
-  int jbest = 0;
-  for (int base = 0; base < count; base += kChunk) {
-    const int n = min(kChunk, count - base);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int i = threadIdx.x; i < n * (kRow / 4); i += blockDim.x)
-      s_rows[i] = src[base * (kRow / 4) + i];
-    __syncthreads();
-    const float* r = reinterpret_cast<const float*>(s_rows);
-    for (int j = 0; j < n; ++j, r += kRow) {
-      if (!(r[6] > 0.5f)) continue;  // padding slot, or face behind znear
-      const Bary q = barycentric(r, px, py);
-      if (!q.inside) continue;
-      const float z = q.w0 * r[8] + q.w1 * r[9] + q.w2 * r[10];
-      if (z > znear && z < zmin) {
-        zmin = z;
-        jbest = base + j;
-      }
-    }
-  }
-  const size_t o = static_cast<size_t>(bt) * blockDim.x + p;
-  zmin_out[o] = zmin;
-  jbest_out[o] = jbest;
 }
 
 // Blocks of `threads` threads that the current device holds at once, over
@@ -597,15 +627,32 @@ int dynhor_sil_bwd(const void* rows, const void* counts, const void* g, void* dx
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 launch.  Returns cudaGetLastError() after the launch (0 = launched).
-int dynhor_depth_fwd(const void* rows, const void* counts, void* zmin,
-                     void* jbest, int n_blocks, int t_rows, int m, int tile,
-                     int tiles_w, float znear, void* stream) {
-  depth_fwd_kernel<<<n_blocks, tile * tile, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), static_cast<const int*>(counts),
-      static_cast<float*>(zmin), static_cast<int*>(jbest), t_rows, m, tile,
-      tiles_w, znear);
+// K3 launch: the pre-pass, the persistent forward and the merge pass.
+// start: (n_rows + 1,) i32 and parts: 2 x 2 x part_blocks x tile^2 f32 of
+// scratch.  Returns cudaGetLastError() after the launches (0 = launched).
+int dynhor_depth_fwd(const void* rows_all, const void* indices, const void* counts, void* zmin,
+                     void* jbest, void* start, void* parts, int part_blocks, int n_rows,
+                     int t_rows, int m, int n_faces, int chunk, int tile, int tiles_w, float znear,
+                     void* stream) {
+  if (chunk < 1 || chunk > kStage || part_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_pix = tile * tile;
+  chunk_prefix_kernel<<<1, kScan, 0, s>>>(static_cast<const int*>(counts), static_cast<int*>(start),
+                                           n_rows, m, chunk);
+  int blocks = 0;
+  const int err = resident_blocks((const void*)depth_fwd_kernel, n_pix, &blocks);
+  if (err) return err;
+  blocks = min(blocks, part_blocks);
+  const size_t span = 2 * static_cast<size_t>(part_blocks) * n_pix;
+  float* pz = static_cast<float*>(parts);
+  int* pj = reinterpret_cast<int*>(pz + span);
+  depth_fwd_kernel<<<blocks, n_pix, 0, s>>>(
+      static_cast<const float*>(rows_all), static_cast<const int*>(indices),
+      static_cast<const int*>(counts), static_cast<const int*>(start), static_cast<float*>(zmin),
+      static_cast<int*>(jbest), pz, pj, n_rows, t_rows, m, n_faces, chunk, tile, tiles_w, znear);
+  depth_merge_kernel<<<min(n_rows, 4 * blocks), n_pix, 0, s>>>(
+      static_cast<const int*>(start), static_cast<float*>(zmin), static_cast<int*>(jbest), pz, pj,
+      n_rows, blocks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,7 +41,7 @@ SOURCES = {
     "raster_fused": ([*_FLAGS, "-fmad=false"], {
         "dynhor_fused_fwd": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
         "dynhor_sil_bwd": [_P] * 5 + [_I] * 5 + [_F, _P],
-        "dynhor_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "dynhor_depth_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
         "dynhor_sil_mass_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
     }),
     # The attention kernels make no hard decision and keep nvcc's default.
@@ -164,8 +164,8 @@ def _launch_args(rows: torch.Tensor, counts: torch.Tensor, tile: int):
     return b, t, m, torch.cuda.current_stream(rows.device).cuda_stream
 
 
-# K1/K2/K4a/K4b run on a work list cut by the counts (csrc/raster_fused.cu):
-# an item is (tile row, chunk of slots), MASS_CHUNK slots for K1 and K4a,
+# K1-K4 run on a work list cut by the counts (csrc/raster_fused.cu): an item
+# is (tile row, chunk of slots), MASS_CHUNK slots for K1, K3 and K4a,
 # GRAD_CHUNK (one a lane of a warp, fixed in the source) for K2 and K4b.
 MASS_CHUNK = 64
 GRAD_CHUNK = 32
@@ -174,7 +174,7 @@ GRAD_CHUNK = 32
 @functools.lru_cache(maxsize=None)
 def _part_blocks(device: torch.device, n_pix: int) -> int:
     """The most blocks of ``n_pix`` threads the card can hold at once: the
-    number of partial-result pairs K1's and K4a's scratch must hold."""
+    number of partial-result pairs K1's, K3's and K4a's scratch must hold."""
     props = torch.cuda.get_device_properties(device)
     per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // n_pix
     return props.multi_processor_count * max(1, per_sm)
@@ -269,18 +269,37 @@ def sil_mass_bwd(rows, counts, g, tile, tiles_w, sigma):
 sil_mass_bwd.launches = 0
 
 
-def depth_fwd(rows, counts, tile, tiles_w, znear):
-    """K3 on the card: see ops/raster_fused.tile_depth_plain."""
-    b, t, m, stream = _launch_args(rows, counts, tile)
+def depth_fwd(rows_all, indices, counts, tile, tiles_w, znear):
+    """K3 on the card: see ops/raster_fused.tile_depth_plain.  rows_all
+    (B, F, 16) f32 per-face records, indices (B, T, M) int32 face ids per
+    tile slot (each in [0, F); not checked, so that no sync enters the
+    wrapper), counts (B, T) int32.  Returns zmin (B, T, tile * tile) f32 and
+    the winning slot (B, T, tile * tile) int32."""
+    if rows_all.dim() != 3 or rows_all.shape[-1] != 16:
+        raise ValueError(f"rows_all must be (B, F, 16), got {tuple(rows_all.shape)}")
+    if indices.dim() != 3:
+        raise ValueError(f"indices must be (B, T, M), got {tuple(indices.shape)}")
+    if not 1 <= tile * tile <= 1024:
+        raise ValueError(f"tile {tile}: tile*tile must be in [1, 1024]")
+    b, t, m = indices.shape
+    f = rows_all.shape[1]
+    _check("rows_all", rows_all, torch.float32, (b, f, 16), align=16)  # float4 loads
+    _check("indices", indices, torch.int32, (b, t, m))
+    _check("counts", counts, torch.int32, (b, t))
     p = tile * tile
-    zmin = torch.empty((b, t, p), dtype=torch.float32, device=rows.device)
-    jbest = torch.empty((b, t, p), dtype=torch.int32, device=rows.device)
+    zmin = torch.empty((b, t, p), dtype=torch.float32, device=rows_all.device)
+    jbest = torch.empty((b, t, p), dtype=torch.int32, device=rows_all.device)
     if b * t == 0:
         return zmin, jbest
-    with torch.cuda.device(rows.device):
+    blocks = _part_blocks(rows_all.device, p)
+    start = torch.empty((b * t + 1,), dtype=torch.int32, device=rows_all.device)
+    parts = torch.empty((2, 2 * blocks, p), dtype=torch.float32, device=rows_all.device)
+    with torch.cuda.device(rows_all.device):
         err = _lib("raster_fused").dynhor_depth_fwd(
-            rows.data_ptr(), counts.data_ptr(), zmin.data_ptr(), jbest.data_ptr(),
-            b * t, t, m, tile, tiles_w, znear, stream,
+            rows_all.data_ptr(), indices.data_ptr(), counts.data_ptr(), zmin.data_ptr(),
+            jbest.data_ptr(), start.data_ptr(), parts.data_ptr(), blocks, b * t, t, m, f,
+            MASS_CHUNK, tile, tiles_w, znear,
+            torch.cuda.current_stream(rows_all.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"depth_fwd kernel launch failed: CUDA error {err}")

@@ -8,8 +8,9 @@ the kernels, which mask the ragged edge themselves.
 
 For CUDA tensors the forward and the backward are hand-written kernels at
 head dim 64: bf16 goes to ``csrc/flash_attention.cu`` (TMA and ``wgmma``),
-f32 to ``csrc/flash_attention_f32.cu`` (f32 FMAs on the CUDA cores, as the
-ViT computes with ``dino_dtype="float32"``); any other dtype or head dim
+f32 to ``csrc/flash_attention_f32.cu`` (each product as three TF32
+``wgmma`` products of hi/lo parts, within 1e-5 of f32, as the ViT computes
+with ``dino_dtype="float32"``); any other dtype or head dim
 raises ``ValueError``, with no cast and no plain version on the card.
 For CPU tensors they are the plain versions below, which repeat the
 kernels' arithmetic block by block: scores and exp in the accumulation type

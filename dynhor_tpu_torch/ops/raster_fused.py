@@ -19,7 +19,8 @@ dynhor_tpu_torch/kernels.py):
 raster of the prior views, around a third kernel:
 
   * K3 ``tile_depth`` — min depth and its slot per pixel, no silhouette
-    (replaces ``_depth_fwd_kernel``).
+    (replaces ``_depth_fwd_kernel``); it reads each slot's record through
+    the bins' face ids, so its path builds no packed rows.
 
 Each has a plain PyTorch version here (``*_plain``).  The dispatchers use
 the plain version only for tensors on the CPU; a CUDA tensor launches the
@@ -27,7 +28,7 @@ kernel or raises.  pix_to_face/zbuf are hard (PyTorch3D blur_radius=0
 semantics); the barycentric/Phong gradient path is plain torch
 (ops/rasterize.barycentrics_from_rows).
 
-Face rows are packed per tile as (B, T, M, 16) records
+Face rows are packed per tile for K1/K2 as (B, T, M, 16) records
 ``[x0 y0 x1 y1 x2 y2 vis pad | z0 z1 z2 pad...]``: slot j of tile t holds
 the j-th lowest candidate face id; padding slots have vis = 0.
 """
@@ -241,26 +242,36 @@ def tile_mass_grad_plain(
 
 
 def tile_depth_plain(
-    rows: Tensor, counts: Tensor, tile: int, tiles_w: int, znear: float
+    rows_all: Tensor, indices: Tensor, counts: Tensor, tile: int, tiles_w: int,
+    znear: float, chunk: int = _PLAIN_CHUNK,
 ):
-    """Plain version of K3: K1's forward without the mass.  rows
-    (B, T, M, 16) f32, counts (B, T) int32.
+    """Plain version of K3: K1's forward without the mass, reading each
+    slot's record through the bins.  rows_all (B, F, 16) f32 per-face
+    records, indices (B, T, M) integer face ids per tile slot, counts (B, T)
+    int32: slot j of tile t holds record rows_all[b, indices[b, t, j]] for
+    j < count (``bin_faces`` keeps the valid slots a prefix of each row).
 
     Per pixel, over each tile's first ``count`` slots: the min interpolated
     depth over covering faces with vis > 0.5 and z > znear, and its slot
     (strict <: the first slot wins).  Returns zmin (B, T, P) f32 (3e38 where
-    nothing covers the pixel) and jbest (B, T, P) int32 (0 there).
+    nothing covers the pixel) and jbest (B, T, P) int32 (0 there).  The
+    slots go ``chunk`` at a time (a memory knob; the outputs do not depend on
+    it), each chunk's records gathered as the kernel stages them.
     """
-    b, t_rows, m, _ = rows.shape
+    b, t_rows, m = indices.shape
     p = tile * tile
-    px, py = _tile_pixels(t_rows, tile, tiles_w, rows.device)
-    zmin = rows.new_full((b, t_rows, p), _BIG_Z)
-    jbest = torch.zeros((b, t_rows, p), dtype=torch.int64, device=rows.device)
-    slot = torch.arange(m, device=rows.device)
+    px, py = _tile_pixels(t_rows, tile, tiles_w, rows_all.device)
+    zmin = rows_all.new_full((b, t_rows, p), _BIG_Z)
+    jbest = torch.zeros((b, t_rows, p), dtype=torch.int64, device=rows_all.device)
+    slot = torch.arange(m, device=rows_all.device)
     m_used = int(counts.max()) if counts.numel() else 0  # slots past it add nothing
-    for s in range(0, m_used, _PLAIN_CHUNK):
-        r = rows[:, :, None, s : s + _PLAIN_CHUNK]  # (B, T, 1, C, 16)
-        keep = (slot[s : s + _PLAIN_CHUNK] < counts[..., None])[:, :, None, :]
+    for s in range(0, m_used, chunk):
+        idx = indices[:, :, s : s + chunk].long()
+        c = idx.shape[2]
+        r = torch.gather(
+            rows_all, 1, idx.reshape(b, -1, 1).expand(-1, -1, _ROW)
+        ).reshape(b, t_rows, 1, c, _ROW)  # (B, T, 1, C, 16)
+        keep = (slot[s : s + c] < counts[..., None])[:, :, None, :]
         (w0, w1, w2), inside, _ = _barycentric(r, px, py)
         z = w0 * r[..., 8] + w1 * r[..., 9] + w2 * r[..., 10]
         live = inside & (z > znear) & (r[..., 6] > 0.5) & keep
@@ -290,11 +301,11 @@ def tile_mass_grad(rows, counts, g, tile, tiles_w, sigma):
     return kernels.sil_bwd(rows, counts, g, tile, tiles_w, sigma)
 
 
-def tile_depth(rows, counts, tile, tiles_w, znear):
+def tile_depth(rows_all, indices, counts, tile, tiles_w, znear):
     """K3: ``tile_depth_plain`` on the CPU, the CUDA kernel otherwise."""
-    if rows.device.type == "cpu":
-        return tile_depth_plain(rows, counts, tile, tiles_w, znear)
-    return kernels.depth_fwd(rows, counts, tile, tiles_w, znear)
+    if rows_all.device.type == "cpu":
+        return tile_depth_plain(rows_all, indices, counts, tile, tiles_w, znear)
+    return kernels.depth_fwd(rows_all, indices, counts, tile, tiles_w, znear)
 
 
 def _pack_tile_rows(
@@ -580,14 +591,14 @@ def depth_inputs(
     max_faces: int = 640,
     znear: float = 1e-2,
 ):
-    """The K3 inputs ``rasterize_depth`` builds: margin-0 bins, the per-face
-    records and the packed tile rows.  Returns (rows (B, T, M, 16), counts
-    (B, T) int32, tiles_w, rows_all (B, F, 16), bins)."""
+    """The K3 inputs ``rasterize_depth`` builds: margin-0 bins and the
+    per-face records, no per-tile copy of them.  Returns (rows_all (B, F,
+    16), indices (B, T, M) int32, counts (B, T) int32, tiles_w, bins)."""
     bins = bin_faces(verts_pix, faces, image_size, tile, max_faces, margin=0.0)
     tw = -(-image_size[1] // tile)
     rows_all = _face_rows(verts_pix, faces, znear)
-    rows, counts = _pack_tile_rows(rows_all, bins.indices, bins.valid, None, tile, tw)
-    return rows, counts, tw, rows_all, bins
+    counts = bins.valid.sum(-1).to(torch.int32)
+    return rows_all, bins.indices.to(torch.int32), counts, tw, bins
 
 
 def rasterize_depth(
@@ -603,8 +614,9 @@ def rasterize_depth(
 
     Margin-0 binning (hard coverage needs no soft-edge band, so the
     candidate load and the counted cap are smaller than the fused
-    raster's), one K3 launch for all B views.  Tiles past the image edge
-    (sides not a multiple of ``tile``) are rastered and cropped away.
+    raster's), one K3 launch for all B views, which reads each slot's
+    record through the bins.  Tiles past the image edge (sides not a
+    multiple of ``tile``) are rastered and cropped away.
 
     Args:
       verts_pix: (B, V, 3) projected (u, v, z).
@@ -615,10 +627,10 @@ def rasterize_depth(
     """
     b = verts_pix.shape[0]
     h, w = image_size
-    rows, counts, tw, rows_all, bins = depth_inputs(
+    rows_all, indices, counts, tw, bins = depth_inputs(
         verts_pix, faces, image_size, tile, max_faces, znear
     )
-    zmin, jbest = tile_depth(rows, counts, tile, tw, znear)
+    zmin, jbest = tile_depth(rows_all, indices, counts, tile, tw, znear)
     hit = zmin < _BIG_Z * 0.5
     fid = torch.gather(bins.indices, 2, jbest.long())
     fid = torch.where(hit, fid, -1).to(torch.int32)

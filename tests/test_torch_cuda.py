@@ -11,7 +11,8 @@ and atol 1e-5 x max (f32 sums in another order).  The same on rows made
 with adversarial counts (one row at the cap, counts at the work list's
 chunk edges, none, equal depths in two chunks, a wide batch), where two
 runs must also give the same bits.  K3's depths within
-1e-5 and its hit mask and winning slot equal, as K1's; the prior scores of
+1e-5 and its hit mask and winning slot equal, as K1's, and on the adversarial
+counts its zbuf and slots exactly the plain versions'; the prior scores of
 the card and the CPU within 1e-5 (f32 ViT, TF32 off).  K5 in bf16: o, dq, dk
 and dv within 2^-7 of the largest value (one bf16 step where the kernel and
 the plain version land on either side of a rounding boundary), its f32
@@ -165,6 +166,45 @@ def test_k1_k2_on_adversarial_counts(cuda, case):
         assert bool((zmin == 3.0e38).all()) and int(jbest.abs().max()) == 0
 
 
+def _as_records(rows, seed):
+    """K3's inputs holding the same slots as packed tile rows (b, t, m, 16):
+    every slot's record at a shuffled place of a (b, t * m, 16) face pool and
+    indices (b, t, m) int32 pointing at it."""
+    b, t, m, _ = rows.shape
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(t * m)).to(rows.device)
+    rows_all = torch.empty((b, t * m, 16), dtype=rows.dtype, device=rows.device)
+    rows_all[:, perm] = rows.reshape(b, t * m, 16)
+    return rows_all, perm.to(torch.int32).reshape(1, t, m).expand(b, t, m).contiguous()
+
+
+@pytest.mark.parametrize("case", ["one-full-row", "chunk-edges", "all-zero", "wide"])
+def test_k3_on_adversarial_counts(cuda, case):
+    """K3 on the same adversarial counts, its records read through shuffled
+    face ids: zbuf and winning slot exactly K3's and K1's plain versions',
+    the first slot winning equal depths across chunks, two runs
+    bit-identical."""
+    b, t, m, counts, tie = _adversarial(case)
+    rows, counts = _crafted_rows(cuda, b, t, m, counts, 29, tie)
+    rows_all, indices = _as_records(rows, 3)
+    chunk = 32 if case == "wide" else 128  # the plain versions' memory knob
+    zmin_p, jbest_p = TF.tile_depth_plain(rows_all, indices, counts, 16, 16, 1e-2, chunk=chunk)
+    _, zmin_1, jbest_1 = TF.tile_mass_depth_plain(rows, counts, 16, 16, 0.25, 1e-2, chunk=chunk)
+    assert torch.equal(zmin_p, zmin_1) and torch.equal(jbest_p, jbest_1)
+    before = kernels.depth_fwd.launches
+    first = kernels.depth_fwd(rows_all, indices, counts, 16, 16, 1e-2)
+    again = kernels.depth_fwd(rows_all, indices, counts, 16, 16, 1e-2)
+    assert kernels.depth_fwd.launches - before == 2
+    assert all(torch.equal(a, e) for a, e in zip(first, again))
+    zmin, jbest = first
+    assert torch.equal(zmin, zmin_p) and torch.equal(jbest, jbest_p)
+    if tie is not None:
+        (fb, ft), slots = tie
+        assert int((jbest[fb, ft] == slots[0]).sum()) > 0
+        assert not bool(torch.isin(jbest[fb, ft], torch.tensor(slots[1:], device=cuda)).any())
+    if case == "all-zero":
+        assert bool((zmin == 3.0e38).all()) and int(jbest.abs().max()) == 0
+
+
 def test_refine_runs_through_both_kernels(cuda):
     gen = torch.Generator().manual_seed(2)
     mesh = TR.MeshArrays(
@@ -210,9 +250,9 @@ def _prior_chunk(cuda, n_views, render):
 @pytest.mark.parametrize("render", [384, 192, 96])
 def test_depth_kernel_matches_plain_version(cuda, render):
     vp, faces, window, cap = _prior_chunk(cuda, 6, render)
-    rows, counts, tw, _, _ = TF.depth_inputs(vp, faces, (window, window), max_faces=cap)
-    zmin, jbest = kernels.depth_fwd(rows, counts, 16, tw, 1e-2)
-    zmin_p, jbest_p = TF.tile_depth_plain(rows, counts, 16, tw, 1e-2)
+    rows_all, indices, counts, tw, _ = TF.depth_inputs(vp, faces, (window, window), max_faces=cap)
+    zmin, jbest = kernels.depth_fwd(rows_all, indices, counts, 16, tw, 1e-2)
+    zmin_p, jbest_p = TF.tile_depth_plain(rows_all, indices, counts, 16, tw, 1e-2)
     hit = zmin_p < 1.5e38
     assert bool(hit.any()) and torch.equal(hit, zmin < 1.5e38)
     torch.testing.assert_close(zmin[hit], zmin_p[hit], rtol=0, atol=1e-5)
@@ -317,6 +357,22 @@ def test_flash_kernels_match_plain_versions(cuda, n, dtype):
     else:
         _close(dk, dk_p, tol)
         _close(dq, dq_p, tol)
+
+
+@pytest.mark.parametrize("n", [31, 32, 33, 95, 96, 97])
+def test_f32_flash_kernels_at_their_step_edges(cuda, n):
+    """The f32 kernels' own edges (32-token steps of the backward, 64-key
+    steps of the forward, 128-row blocks), within 1e-5 of the plain
+    versions."""
+    q, k, v, g = _block_views(cuda, 2, 3, n, 300 + n, torch.float32)
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, 0.125)
+    delta_p = FA.flash_delta_plain(o_p, g)
+    dq_p, dk_p, dv_p = FA.flash_bwd_plain(q, k, v, g, lse_p, delta_p, 0.125)
+    o, lse = kernels.flash_fwd_f32(q, k, v, 0.125)
+    dk, dv = kernels.flash_bwd_dkv_f32(q, k, v, g, lse_p, delta_p, 0.125)
+    dq = kernels.flash_bwd_dq_f32(q, k, v, g, lse_p, delta_p, 0.125)
+    for a, ref in ((o, o_p), (lse, lse_p), (dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        _close(a, ref, 1e-5)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -275,3 +275,79 @@ def test_f32_vit_with_flash_matches_jax_attention():
     assert tok_t.dtype == torch.float32
     np.testing.assert_allclose(tok_t.detach().numpy(), np.asarray(tok_j), atol=1e-5)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The f32 kernels' 3xTF32 split (csrc/flash_attention_f32.cu), emulated.
+# --------------------------------------------------------------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 as the f32 kernels write it: half a unit of the 13
+    dropped mantissa bits carried in, then the bits cleared (round to
+    nearest, ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels compute it: three TF32 products (each product of
+    two 11-bit mantissas exact in f32), small terms first, summed in f32."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_tf32_rounding_of_the_split():
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-11 - 2.0**-23,
+                      1.0 + 3 * 2.0**-11, 3.0e-39, 0.0])
+    hi = _tf32(x)
+    # Ties go away from zero; below a tie rounds down; low 13 bits clear.
+    assert hi[:4].tolist() == [1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 1.0 + 2 * 2.0**-10]
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    y = torch.as_tensor(np.random.default_rng(1).standard_normal(10000).astype(np.float32))
+    h, l = _split(y)
+    rel = ((h.double() + l.double() - y.double()).abs() / y.double().abs()).max()
+    assert float(rel) <= 2.0**-21
+
+
+def _attention_operands(n=300, seed=2):
+    """The six products of flash attention at ViT-like magnitudes (q, k, v
+    of a few units, scale 1/8), their f32 operands made from the f64
+    softmax and its backward."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.as_tensor(1.5 * rng.standard_normal((2, n, 64))) for _ in range(4))
+    s = q @ k.transpose(-1, -2) * 0.125
+    p = torch.softmax(s, -1)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (g * (p @ v)).sum(-1, keepdim=True))
+    f = {name: x.float() for name, x in (("q", q), ("k", k), ("v", v), ("g", g), ("p", p),
+                                         ("ds", ds))}
+    return {
+        "S = Q K^T": (f["q"], f["k"].transpose(-1, -2)),
+        "O = P V": (f["p"], f["v"]),
+        "dV = P^T dO": (f["p"].transpose(-1, -2), f["g"]),
+        "dP = dO V^T": (f["g"], f["v"].transpose(-1, -2)),
+        "dK = dS^T Q": (f["ds"].transpose(-1, -2), f["q"]),
+        "dQ = dS K": (f["ds"], f["k"]),
+    }
+
+
+@pytest.mark.parametrize("product", ["S = Q K^T", "O = P V", "dV = P^T dO", "dP = dO V^T",
+                                     "dK = dS^T Q", "dQ = dS K"])
+def test_three_tf32_products_meet_1e5_where_one_does_not(product):
+    """Each product of the f32 kernels, as three TF32 products, within 1e-5
+    of the largest magnitude of the f64 product of the same f32 operands;
+    one TF32 product (what the tensor cores give for raw f32) is not."""
+    a, b = _attention_operands()[product]
+    ref = a.double() @ b.double()
+    scale = float(ref.abs().max())
+    err3 = float((_mm3(a, b).double() - ref).abs().max()) / scale
+    err1 = float(((_tf32(a) @ _tf32(b)).double() - ref).abs().max()) / scale
+    assert err3 <= 1e-5, (product, err3)
+    assert err1 > 1e-5, (product, err1)

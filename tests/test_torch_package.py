@@ -66,8 +66,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(which):
             getattr(kernels, which)(rows, counts, torch.zeros((1, 1, 256)), 16, 1, 0.25)
         elif which == "sil_mass_fwd":
             kernels.sil_mass_fwd(rows, counts, 16, 1, 0.25)
-        else:
-            kernels.depth_fwd(rows, counts, 16, 1, 1e-2)
+        else:  # K3 reads per-face records through the bins' face ids
+            kernels.depth_fwd(rows[0], torch.zeros((1, 1, 128), dtype=torch.int32), counts,
+                              16, 1, 1e-2)
     assert getattr(kernels, which).launches == before
 
 

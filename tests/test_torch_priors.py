@@ -92,21 +92,85 @@ def test_rasterize_depth_matches_rasterize_pallas(shoes, case):
     assert (pj >= 0).any() == (case != "empty_view")
 
 
+def _packed(rows_all, indices, counts):
+    """K1's packed tile rows of the same slots (ops/raster_fused.
+    _pack_tile_rows): each slot's record, vis zeroed at and past the count."""
+    b, t, m = indices.shape
+    rows = torch.gather(rows_all, 1, indices.long().reshape(b, -1, 1).expand(-1, -1, 16))
+    rows = rows.reshape(b, t, m, 16).clone()
+    rows[..., 6] *= (torch.arange(m) < counts[..., None]).float()
+    return rows
+
+
 def test_tile_depth_plain_is_k1_without_the_mass():
-    """K3's plain version makes K1's hard decisions on the same rows."""
+    """K3's plain version, reading records through the bins, makes K1's hard
+    decisions on the same slots packed into tile rows."""
     rng = np.random.default_rng(5)
-    rows = torch.as_tensor(rng.uniform(-8.0, 40.0, (2, 6, 200, 16)).astype(np.float32))
-    rows[..., 6] = torch.as_tensor((rng.random((2, 6, 200)) > 0.2).astype(np.float32))
-    rows[..., 8:11] = torch.as_tensor(rng.uniform(-0.5, 3.0, (2, 6, 200, 3)).astype(np.float32))
-    rows[:, :, :5, 2:4] = rows[:, :, :5, 0:2]  # degenerate faces
+    rows_all = torch.as_tensor(rng.uniform(-8.0, 40.0, (2, 300, 16)).astype(np.float32))
+    rows_all[..., 6] = torch.as_tensor((rng.random((2, 300)) > 0.2).astype(np.float32))
+    rows_all[..., 8:11] = torch.as_tensor(rng.uniform(-0.5, 3.0, (2, 300, 3)).astype(np.float32))
+    rows_all[:, :5, 2:4] = rows_all[:, :5, 0:2]  # degenerate faces
+    indices = torch.as_tensor(rng.integers(0, 300, (2, 6, 200)).astype(np.int32))
     counts = torch.tensor([[200, 150, 0, 7, 129, 128], [1, 0, 200, 64, 3, 199]], dtype=torch.int32)
-    _, zmin_1, jbest_1 = TF.tile_mass_depth_plain(rows, counts, 16, 3, 0.25, 1e-2)
-    zmin, jbest = TF.tile_depth_plain(rows, counts, 16, 3, 1e-2)
+    _, zmin_1, jbest_1 = TF.tile_mass_depth_plain(
+        _packed(rows_all, indices, counts), counts, 16, 3, 0.25, 1e-2
+    )
+    zmin, jbest = TF.tile_depth_plain(rows_all, indices, counts, 16, 3, 1e-2)
     assert torch.equal(zmin, zmin_1) and torch.equal(jbest, jbest_1)
     assert bool((zmin < 1e38).any()) and bool((zmin > 1e38).any())
     before = kernels.depth_fwd.launches
-    assert torch.equal(TF.tile_depth(rows, counts, 16, 3, 1e-2)[0], zmin)
+    assert torch.equal(TF.tile_depth(rows_all, indices, counts, 16, 3, 1e-2)[0], zmin)
     assert kernels.depth_fwd.launches == before  # CPU tensors take the plain version
+
+
+def _old_tile_depth_plain(rows, counts, tile, tiles_w, znear):
+    """K3's plain version as it was on packed (B, T, M, 16) rows, 128 slots
+    a step: the arithmetic the record-reading version must keep."""
+    b, t_rows, m, _ = rows.shape
+    px, py = TF._tile_pixels(t_rows, tile, tiles_w, rows.device)
+    zmin = rows.new_full((b, t_rows, tile * tile), TF._BIG_Z)
+    jbest = torch.zeros((b, t_rows, tile * tile), dtype=torch.int64)
+    slot = torch.arange(m)
+    for s in range(0, int(counts.max()), 128):
+        r = rows[:, :, None, s : s + 128]
+        keep = (slot[s : s + 128] < counts[..., None])[:, :, None, :]
+        (w0, w1, w2), inside, _ = TF._barycentric(r, px, py)
+        z = w0 * r[..., 8] + w1 * r[..., 9] + w2 * r[..., 10]
+        live = inside & (z > znear) & (r[..., 6] > 0.5) & keep
+        zc, jc = torch.where(live, z, TF._BIG_Z).min(dim=-1)
+        better = zc < zmin
+        zmin = torch.where(better, zc, zmin)
+        jbest = torch.where(better, jc + s, jbest)
+    return zmin, jbest.to(torch.int32)
+
+
+@pytest.mark.parametrize("chunk", [1, 64, 128])
+def test_tile_depth_plain_on_records_matches_packed_rows_and_pallas(shoes, chunk):
+    """On the shoes view at 128 px: the bins' valid slots are a prefix of
+    each row (so the count alone masks the padding); K3's plain version
+    reading records through the bins, at any chunk, equals the packed-rows
+    arithmetic it replaced, and its pix_to_face equals rasterize_pallas's
+    (interpret mode)."""
+    size = 128
+    vp, faces = _shoes_view(shoes, size)
+    load = int(JT.max_tile_load(jnp.asarray(vp), faces, (size, size), margin=0.0))
+    cap = -(-load // 128) * 128
+    rows_all, indices, counts, tw, bins = TF.depth_inputs(
+        _t(vp)[None], _t(faces), (size, size), max_faces=cap
+    )
+    m = indices.shape[2]
+    assert torch.equal(bins.valid, torch.arange(m) < counts[..., None])  # a prefix of each row
+    assert indices.dtype == torch.int32 and int(counts.max()) > 128
+    zmin, jbest = TF.tile_depth_plain(rows_all, indices, counts, 16, tw, 1e-2, chunk=chunk)
+    packed = TF._pack_tile_rows(rows_all, bins.indices, bins.valid, None, 16, tw)[0]
+    zmin_o, jbest_o = _old_tile_depth_plain(packed, counts, 16, tw, 1e-2)
+    assert torch.equal(zmin, zmin_o) and torch.equal(jbest, jbest_o)
+    hit = zmin < 1e38
+    fid = torch.where(hit, torch.gather(bins.indices, 2, jbest.long()), -1)
+    th = -(-size // 16)
+    p2f = fid.reshape(th, tw, 16, 16).permute(0, 2, 1, 3).reshape(th * 16, tw * 16)
+    frag_j, _ = rasterize_pallas(jnp.asarray(vp), jnp.asarray(faces), (size, size), max_faces=cap)
+    np.testing.assert_array_equal(p2f[:size, :size].numpy(), np.asarray(frag_j.pix_to_face))
 
 
 def test_prior_render_and_crop_match(shoes):
