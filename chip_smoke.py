@@ -72,8 +72,28 @@ Phases; any failure exits non-zero.
 4b. The prior path on a small scene, card against CPU, for both attentions
    and for f32 "flash".
 5. Every kernel of the ``kernels`` line launched on its path: K1-K3 and K5
-   in phases 3 and 4 (the f32 K5 in phase 3's f32 run), K4a and K4b in 3c,
-   K6 in 2e.
+   in phases 3 and 4 (the f32 K5 in phase 3's f32 run), K1-K3 again in
+   phase 6, K4a and K4b in 3c, K6 in 2e.
+6. ``run.py`` at full width on the card, through the port's entry point
+   ``python -m dynhor_tpu_torch.run`` (its ``main``, in this process, from a
+   YAML file): a 12-frame
+   480x640 shoes sequence from the port's demo-data twin (seed 0,
+   correspondences on), the ``io/config.py`` defaults (6,000 random prior
+   views in two stages, a random-weight ViT-B/14 at 518², 100 refine and
+   200 joint steps, outlier voting).  The phases' seconds, the peak memory
+   (the voting's own too), the artifacts (12 pose files with orthonormal
+   R, board/, config.yaml, the closing line), no overflow, K3 once per view
+   chunk of both stages, K1 and K2 once per refine, joint and re-joint step,
+   K5 never.  K1-K3's ``launches`` in the ``kernels`` line are this run's.
+   Then the run's poses with frame 5 moved far off through
+   ``maybe_vote_outliers``: the frame found, K1 and K2 once per re-joint
+   step (100), the repaired poses orthonormal, the re-joint's overflow at
+   JointConfig's default caps printed.
+   Then the e2e test's box (4 frames at 120x160, crop 64, a tiny ViT, 24
+   prior views) through ``track_sequence`` and, with frame 2 moved far off,
+   ``maybe_vote_outliers`` (the repair and a 5-step re-joint) on the card
+   and on the CPU: the same selected views, the same outliers, poses within
+   1e-4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -81,12 +101,16 @@ Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -125,6 +149,20 @@ PEAK_TF32_3X = 495e12 / 3
 PRIOR_VIEWS = 6000  # io/config.py prior.num_views
 JOINT_STEPS = 200  # io/config.py system.joint_num_iterations
 CPU_FRAMES = 2  # frames of phase 2d's card-vs-CPU check
+RUN_FRAMES = 12  # tools/make_demo_data.py's defaults: 12 frames at 480x640
+RUN_HW = (480, 640)
+# The e2e test's box (tests/test_pipeline_e2e.py), 12 faces.
+BOX_V = [[-0.3, -0.2, -0.1], [0.3, -0.2, -0.1], [0.3, 0.2, -0.1], [-0.3, 0.2, -0.1],
+         [-0.3, -0.2, 0.1], [0.3, -0.2, 0.1], [0.3, 0.2, 0.1], [-0.3, 0.2, 0.1]]
+BOX_F = [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
+         [3, 2, 6], [3, 6, 7], [1, 5, 6], [1, 6, 2], [0, 3, 7], [0, 7, 4]]
+# The card against the CPU on the box, the same torch pipeline: poses after
+# the refine and after the joint and re-joint within this (measured 4.41e-6
+# and 7.57e-6 on an H100 80GB HBM3 at 700 W).
+RUN_CARD_TOL = 1e-4
+# The frame that phase 6 moves far off so that the voting repairs it and the
+# re-joint runs at full width (inside the sequence: it has both neighbours).
+RUN_MOVED = 5
 
 
 def fail(msg: str) -> None:
@@ -1128,14 +1166,7 @@ def phase_small_reference(dev, attn_impl: str = "xla", dtype: str = "bfloat16") 
     from dynhor_tpu_torch.utils import geometry as G
 
     s = 64
-    v = torch.tensor(
-        [[-0.3, -0.2, -0.1], [0.3, -0.2, -0.1], [0.3, 0.2, -0.1], [-0.3, 0.2, -0.1],
-         [-0.3, -0.2, 0.1], [0.3, -0.2, 0.1], [0.3, 0.2, 0.1], [-0.3, 0.2, 0.1]]
-    )
-    f = torch.tensor(
-        [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
-         [3, 2, 6], [3, 6, 7], [1, 5, 6], [1, 6, 2], [0, 3, 7], [0, 7, 4]]
-    )
+    v, f = torch.tensor(BOX_V), torch.tensor(BOX_F)
     texture = torch.rand((4, 4, 3), generator=torch.Generator().manual_seed(2))
     mesh = RF.MeshArrays(v, f, torch.full((12, 3, 2), 0.5), texture)
     R = G.rotations_from_uniforms(torch.tensor([[0.1, 0.7], [0.4, 0.2], [0.8, 0.5]]))
@@ -1226,14 +1257,7 @@ def phase_joint_small(dev) -> None:
     from dynhor_tpu_torch.utils import geometry as G
 
     s = 64
-    v = torch.tensor(
-        [[-0.3, -0.2, -0.1], [0.3, -0.2, -0.1], [0.3, 0.2, -0.1], [-0.3, 0.2, -0.1],
-         [-0.3, -0.2, 0.1], [0.3, -0.2, 0.1], [0.3, 0.2, 0.1], [-0.3, 0.2, 0.1]]
-    )
-    f = torch.tensor(
-        [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
-         [3, 2, 6], [3, 6, 7], [1, 5, 6], [1, 6, 2], [0, 3, 7], [0, 7, 4]]
-    )
+    v, f = torch.tensor(BOX_V), torch.tensor(BOX_F)
     R = uniform_rotations(3, 8, "cpu")
     t = torch.tensor([[0.0, 0.0, 2.0], [0.03, -0.02, 2.05], [0.05, -0.03, 2.1]])
     K = torch.tensor([[float(s), 0, s / 2], [0, float(s), s / 2], [0, 0, 1.0]]).expand(3, 3, 3)
@@ -1693,6 +1717,280 @@ def phase_priors_small(dev, attn_impl: str = "xla", dtype: str = "bfloat16") -> 
         check(torch.equal(i_dev, i_cpu), "gating selected other views on the card")
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy to parse."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.buf.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+class _Peak:
+    """Wraps a function to record the device's peak memory during each call
+    (installed as its module's global, which the caller looks up at call
+    time); ``before`` keeps the peak reached before the first call."""
+
+    def __init__(self, fn):
+        self.fn, self.peaks, self.before = fn, [], 0
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        self.before = max(self.before, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+
+def view_chunks(n: int, chunk: int, host_batch: int = 1000) -> int:
+    """K3 launches of one scoring call: a chunk at a time within each host
+    batch (tracker/priors.prior_scores_batched)."""
+    return sum(-(-min(host_batch, n - i) // chunk) for i in range(0, n, host_batch))
+
+
+def phase_run(dev, card: str, kernel_rows: list[dict]) -> None:
+    """Phase 6: ``python -m dynhor_tpu_torch.run`` at full width on the card,
+    then the voting and re-joint on the run's poses with one frame moved off."""
+    import yaml
+
+    from dynhor_tpu_torch import run as RUN
+    from dynhor_tpu_torch.io.config import DEFAULTS
+    from dynhor_tpu_torch.tools import make_demo_data as MD
+    from dynhor_tpu_torch.tracker import outliers as OV
+    from dynhor_tpu_torch.tracker import priors as TP
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    try:
+        seq_dir, exps = os.path.join(tmp, "custom_shoes"), os.path.join(tmp, "exps")
+        _, t_data = wall(lambda: MD.write_sequence(
+            seq_dir, SHOES, frames=RUN_FRAMES, height=RUN_HW[0], width=RUN_HW[1], seed=0,
+            device=dev, verbose=False,
+        ))
+        user = {"seq_name": "custom_shoes",
+                "data_info": {"dataroot": seq_dir, "obj_path": os.path.abspath(SHOES)}}
+        cfg_path = os.path.join(tmp, "custom_shoes.yaml")
+        with open(cfg_path, "w") as fh:
+            yaml.safe_dump(user, fh)
+        route = "python -m dynhor_tpu_torch.run (its main, from a YAML file)"
+
+        def run():
+            return RUN.main(["--config_path", cfg_path, "--exps_root", exps])
+        print(f"[run] {RUN_FRAMES} frames at {RUN_HW[0]}x{RUN_HW[1]} written by the demo-data "
+              f"twin in {t_data:.3f} s; running {route}", flush=True)
+        stages, voting = _Stages(TP.prior_scores_batched), _Peak(OV.vote_outliers)
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        TP.prior_scores_batched, OV.vote_outliers = stages, voting
+        try:
+            with contextlib.redirect_stdout(tee):
+                result, t_run = wall(run)
+        finally:
+            TP.prior_scores_batched, OV.vote_outliers = stages.fn, voting.fn
+        launches = read_launches()
+        peak = max([voting.before, torch.cuda.max_memory_allocated()] + voting.peaks)
+        text = tee.buf.getvalue()
+
+        secs = {k: float(v) for k, v in re.findall(r"\[profile\] ([^:\n]+): ([\d.]+)s", text)}
+        want = {"host preprocessing", "frame-features", "prior-scoring", "gating+autodepth",
+                "refine", "joint-opt", "outlier-voting"}
+        check(want <= set(secs), f"phase seconds missing: {sorted(want - set(secs))}")
+        check("overflow" not in text, "a raster overflowed its counted cap in the run")
+        lines = text.strip().splitlines()
+        check(lines[-1].startswith(f"tracked {RUN_FRAMES} frames; final joint loss"),
+              f"closing line {lines[-1]!r}")
+        found = re.search(r"outlier voting: .* outliers=\[([\d, ]*)\]", text)
+        check(found is not None, "outlier voting did not run")
+        outliers = [int(x) for x in found.group(1).split(",") if x.strip()]
+
+        exp = os.path.join(exps, "custom_shoes", "pred")
+        npzs = sorted(os.listdir(os.path.join(exp, "obj_infos")))
+        check(npzs == [f"{i:04d}.npz" for i in range(RUN_FRAMES)], f"pose files {npzs}")
+        for name in npzs:
+            d = np.load(os.path.join(exp, "obj_infos", name))
+            check(set(d.files) == {"R", "T", "K"}, f"{name} keys {d.files}")
+            R, T, K = d["R"], d["T"], d["K"]
+            check(R.shape == (3, 3) and T.shape == (3,) and K.shape == (3, 3), f"{name} shapes")
+            check(all(np.isfinite(x).all() for x in (R, T, K)), f"{name} not finite")
+            check(np.abs(R @ R.T - np.eye(3)).max() <= 1e-4, f"{name}: R not orthonormal")
+        board = os.listdir(os.path.join(exp, "board"))
+        check(any(n.startswith("events.out.tfevents") for n in board), f"board/ holds {board}")
+        check(os.path.exists(os.path.join(exp, "config.yaml")), "no config.yaml")
+
+        check(len(stages.calls) == 2, f"two-stage scoring made {len(stages.calls)} scoring calls")
+        (n_lo, t_lo), (n_hi, t_hi) = stages.calls
+        pc = DEFAULTS["system"]["prior"]
+        chunks = view_chunks(n_lo, pc["view_chunk"] * pc["prescreen"]["scale"], pc["host_batch"])
+        chunks += view_chunks(n_hi, pc["view_chunk"], pc["host_batch"])
+        check(launches["K3"] == chunks, f"K3 launched {launches['K3']} times for {chunks} view chunks")
+        sysc = DEFAULTS["system"]
+        steps = sysc["init_num_iterations"] + sysc["joint_num_iterations"]
+        steps += sysc["joint_num_iterations"] // 2 if outliers else 0
+        check(launches["K1"] == launches["K2"] == steps,
+              f"K1/K2 launched {launches['K1']}/{launches['K2']} times for {steps} steps")
+        others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3") and n}
+        check(not others, f"kernels off this path launched: {others}")
+        gt = np.load(os.path.join(seq_dir, "gt_poses.npz"))
+        from dynhor_tpu_torch.utils import geometry as G
+
+        ang = G.rotation_angle_difference(
+            torch.as_tensor(result.rotations_row), torch.as_tensor(gt["R"]).transpose(-1, -2))
+        print(
+            f"[run] {route}: {t_run:.3f} s wall; phase seconds {secs}; scoring stages "
+            f"{n_lo} views in {t_lo:.3f} s, {n_hi} in {t_hi:.3f} s; selected views "
+            f"{result.selected_idx.tolist()}; outliers {outliers}; launches K1 {launches['K1']}, "
+            f"K2 {launches['K2']}, K3 {launches['K3']} (view chunks {chunks}), K5 0; peak "
+            f"{peak / 2**30:.2f} GiB allocated, the voting's own "
+            f"{max(voting.peaks) / 2**30:.3f} GiB; rotation error against gt_poses.npz "
+            f"(random ViT weights) mean {float(ang.mean()):.1f} deg — {card}", flush=True,
+        )
+        for row in kernel_rows:
+            key = row["name"].split()[0]
+            if key in ("K1", "K2", "K3"):
+                row["launches"] = launches[key]
+        phase_rejoint(dev, cfg_path, seq_dir, result)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_rejoint(dev, cfg_path: str, seq_dir: str, result) -> None:
+    """The voting and its re-joint at full width on the card: phase 6's
+    poses with frame RUN_MOVED moved far off, through
+    ``maybe_vote_outliers`` with the run's config.  The moved frame is found,
+    K1 and K2 launch once per re-joint step and K3 never, and the repaired
+    poses are finite and orthonormal.  The re-joint takes JointConfig's
+    default caps, as the JAX package does; its overflow, if any, is printed
+    (the reference drops those faces too)."""
+    from dynhor_tpu_torch.io.config import load_config
+    from dynhor_tpu_torch.tracker import pipeline as PL
+
+    config = load_config(cfg_path)
+    sysc = config["system"]
+    seq = PL.load_sequence(seq_dir)
+    ann = PL.process_frames(seq, crop_size=int(sysc["crop_size"]),
+                            bbox_expansion=float(sysc["bbox_expansion"]))
+    mesh = PL.load_mesh(config["data_info"]["obj_path"],
+                        bool(config["data_info"].get("normalize_mesh", True)))
+    R, T = result.rotations_row.copy(), result.translations.copy()
+    R[RUN_MOVED] = uniform_rotations(1, 9, "cpu")[0].numpy()
+    T[RUN_MOVED] = T[RUN_MOVED] + np.array([0.1, -0.05, 0.2], np.float32)
+    moved = result._replace(rotations_row=R, translations=T)
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with contextlib.redirect_stdout(tee):
+        fixed, t_fix = wall(lambda: PL.maybe_vote_outliers(config, seq, ann, mesh, moved,
+                                                           device=dev))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    text = tee.buf.getvalue()
+    found = re.search(r"outlier voting: .* outliers=\[([\d, ]*)\]", text)
+    check(found is not None, "the voting did not run on the moved poses")
+    outliers = [int(x) for x in found.group(1).split(",") if x.strip()]
+    check(RUN_MOVED in outliers, f"the voting found {outliers}, not the moved frame {RUN_MOVED}")
+    steps = sysc["joint_num_iterations"] // 2
+    check(launches["K1"] == launches["K2"] == steps and launches["K3"] == 0,
+          f"the re-joint launched {launches} for {steps} steps")
+    others = {k: n for k, n in launches.items() if k not in ("K1", "K2") and n}
+    check(not others, f"kernels off the re-joint's path launched: {others}")
+    Rf, Tf = fixed.rotations_row, fixed.translations
+    check(np.isfinite(Rf).all() and np.isfinite(Tf).all(), "repaired poses not finite")
+    orth = float(np.abs(Rf @ Rf.transpose(0, 2, 1) - np.eye(3)).max())
+    check(orth <= 1e-4, f"repaired R not orthonormal ({orth:.3g})")
+    check(np.abs(Rf[RUN_MOVED] - R[RUN_MOVED]).max() > 1e-2, "the moved frame was not repaired")
+    ov = re.search(r"tile-bin overflow DURING joint optimization \(max (\d+)", text)
+    print(f"[run-rejoint] frame {RUN_MOVED} moved off: outliers {outliers}, voting and a "
+          f"{steps}-step re-joint in {t_fix:.3f} s, K1/K2 {launches['K1']}/{launches['K2']}, "
+          f"K3 {launches['K3']}; peak {peak / 2**30:.2f} GiB; max |R R^T - I| {orth:.3g}; the "
+          f"re-joint's most face-tile pairs dropped in a step at the default 640 cap: "
+          f"{ov.group(1) if ov else 0}", flush=True)
+
+
+def phase_run_small(dev) -> None:
+    """The e2e test's box through ``track_sequence`` and, with frame 2
+    moved far off, ``maybe_vote_outliers``, on the card and on the CPU: the
+    same selected views and outliers, poses within RUN_CARD_TOL."""
+    from dynhor_tpu_torch.io.config import DEFAULTS
+    from dynhor_tpu_torch.models import dino as D
+    from dynhor_tpu_torch.tools import make_demo_data as MD
+    from dynhor_tpu_torch.tracker import pipeline as PL
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_box_")
+    try:
+        obj = os.path.join(tmp, "box.obj")
+        with open(obj, "w") as fh:
+            fh.writelines(f"v {x} {y} {z}\n" for x, y, z in BOX_V)
+            fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in BOX_F)
+        seq_dir = os.path.join(tmp, "seq")
+        MD.write_sequence(seq_dir, obj, frames=4, height=120, width=160, device="cpu",
+                          verbose=False)
+        cfg = copy.deepcopy(DEFAULTS)
+        cfg["data_info"].update(dataroot=seq_dir, obj_path=obj, normalize_mesh=False)
+        cfg["system"].update(init_num_iterations=8, joint_num_iterations=10, joint_lr=1e-3,
+                             crop_size=64, face_chunk=12)
+        cfg["system"]["prior"].update(num_views=24, view_chunk=6, render_hw=[96, 96])
+        seq = PL.load_sequence(seq_dir)
+        ann = PL.process_frames(seq, crop_size=64)
+        mesh = PL.load_mesh(obj, normalize=False)
+        dcfg = D.DinoConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, pos_grid=4,
+                            smaller_edge_size=32)
+        params = D.init_params(dcfg, torch.Generator().manual_seed(3))
+        rots = uniform_rotations(24, 33, "cpu")
+        bad = uniform_rotations(1, 9, "cpu")[0].numpy()
+        out = {}
+        for where in (dev, "cpu"):
+            reset_launches()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                res = PL.track_sequence(cfg, seq, ann, mesh, params, dcfg,
+                                        view_rotations=rots, device=where)
+                # Frame 2 moved far off, so that the voting repairs it and
+                # the re-joint runs.
+                R, T = res.rotations_row.copy(), res.translations.copy()
+                R[2], T[2] = bad, T[2] + np.array([0.1, -0.05, 0.2], np.float32)
+                voted = PL.maybe_vote_outliers(
+                    cfg, seq, ann, mesh, res._replace(rotations_row=R, translations=T),
+                    device=where,
+                )
+            found = re.search(r"outliers=\[([\d, ]*)\]", printed.getvalue())
+            check(found is not None and "2" in found.group(1).split(", "),
+                  f"the small run's voting found outliers {found and found.group(1)}")
+            if where == dev:
+                rl = read_launches()
+                check(rl["K1"] == rl["K2"] == 8 + 10 + 5 and rl["K3"] > 0,
+                      f"the small run on the card launched {rl} (8 refine, 10 joint, 5 "
+                      "re-joint steps)")
+            out[str(where)] = (res, voted, found.group(1))
+        (r_dev, v_dev, o_dev), (r_cpu, v_cpu, o_cpu) = out[str(dev)], out["cpu"]
+        errs = {
+            "init": max(float(np.abs(r_dev.init_rotations_row - r_cpu.init_rotations_row).max()),
+                        float(np.abs(r_dev.init_translations - r_cpu.init_translations).max())),
+            "final": max(float(np.abs(v_dev.rotations_row - v_cpu.rotations_row).max()),
+                         float(np.abs(v_dev.translations - v_cpu.translations).max())),
+        }
+        print(f"[run-small] box, 4 frames: card vs CPU selected {r_dev.selected_idx.tolist()} vs "
+              f"{r_cpu.selected_idx.tolist()}, outliers [{o_dev}] vs [{o_cpu}], max abs pose "
+              f"difference after the refine {errs['init']:.3g}, after the joint and voting "
+              f"{errs['final']:.3g}", flush=True)
+        check(np.array_equal(r_dev.selected_idx, r_cpu.selected_idx),
+              "the card and the CPU selected other views")
+        check(o_dev == o_cpu, "the card and the CPU found other outliers")
+        check(errs["init"] <= RUN_CARD_TOL and errs["final"] <= RUN_CARD_TOL,
+              f"card and CPU poses differ by {errs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the card; it never runs the CPU path)")
@@ -1741,6 +2039,8 @@ def main() -> None:
     )
     for impl, dtype in (("xla", "float32"), ("flash", "bfloat16"), ("flash", "float32")):
         phase_priors_small(dev, impl, dtype)
+    phase_run(dev, smi, kernel_rows)
+    phase_run_small(dev)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]
     check(not missing, f"kernels of the path that the main path never launched: {missing}")
     print(json.dumps({"kernels": kernel_rows}), flush=True)

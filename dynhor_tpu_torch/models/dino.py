@@ -15,7 +15,9 @@ both select ``ops/flash_attention.flash_attention`` here, one hand-written
 CUDA flash attention (bf16 at head dim 64 on the card, its plain version on
 the CPU).  There is no quiet switch back to "xla".  The path runs without
 recomputation (the ViT has no weight gradients, and the step fits in the
-card's memory).
+card's memory).  ``load_params`` reads a torch state_dict (.pth, or .npz of
+the same keys) through ``convert_torch_state_dict``, or draws random
+weights from a seed.
 """
 from __future__ import annotations
 
@@ -64,6 +66,26 @@ class DinoConfig:
     @property
     def feat_size(self) -> int:
         return self.smaller_edge_size // self.patch_size
+
+
+# The torch.hub DINOv2 family (the reference hard-codes 'dinov2_vitb14',
+# ObjTracker/dino.py:5; s/b/l share the block structure, all at head dim
+# 64).  vitg14's SwiGLU FFN is not supported.
+MODEL_PRESETS: dict[str, dict[str, int]] = {
+    "dinov2_vits14": {"embed_dim": 384, "depth": 12, "num_heads": 6},
+    "dinov2_vitb14": {"embed_dim": 768, "depth": 12, "num_heads": 12},
+    "dinov2_vitl14": {"embed_dim": 1024, "depth": 24, "num_heads": 16},
+}
+
+
+def config_for_model(name: str, **overrides) -> DinoConfig:
+    """DinoConfig for a torch.hub DINOv2 model name (see MODEL_PRESETS)."""
+    if name not in MODEL_PRESETS:
+        raise ValueError(
+            f"unknown DINOv2 model {name!r}; supported: {sorted(MODEL_PRESETS)} "
+            "(vitg14's SwiGLU FFN is not implemented)"
+        )
+    return dataclasses.replace(DinoConfig(), **MODEL_PRESETS[name], **overrides)
 
 
 def init_params(
@@ -287,3 +309,142 @@ def extract_features(
     mean = torch.as_tensor(IMAGENET_MEAN, device=images01.device).reshape(1, 3, 1, 1)
     std = torch.as_tensor(IMAGENET_STD, device=images01.device).reshape(1, 3, 1, 1)
     return forward_tokens(params, (images01 - mean) / std, cfg)
+
+
+# --------------------------------------------------------------------------
+# Torch checkpoint conversion
+# --------------------------------------------------------------------------
+
+def convert_torch_state_dict(sd: dict[str, Any], cfg: DinoConfig = DinoConfig()):
+    """A torch DINOv2 state_dict -> (this module's parameter dict, cfg).
+
+    Accepts the official facebookresearch/dinov2 naming
+    (``blocks.N.attn.qkv.weight`` ...) or the HuggingFace transformers
+    naming (``encoder.layer.N.attention.attention.query.weight`` ...);
+    values may be tensors or numpy arrays.  The architecture (embed_dim,
+    depth, num_heads = embed_dim / 64) and the position grid are read from
+    the weights; ``cfg`` supplies the rest (smaller_edge_size, eps).
+    """
+
+    def a(t):
+        if isinstance(t, Tensor):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t, np.float32)
+
+    def has(k):
+        return k in sd
+
+    official = has("blocks.0.attn.qkv.weight") or has("patch_embed.proj.weight")
+    cls_key = "cls_token" if official else "embeddings.cls_token"
+    d = int(np.shape(sd[cls_key])[-1])
+    blk_fmt = "blocks.{}.norm1.weight" if official else "encoder.layer.{}.norm1.weight"
+    depth = 0
+    while has(blk_fmt.format(depth)):
+        depth += 1
+    if (d, depth) != (cfg.embed_dim, cfg.depth):
+        # num_heads is not stored in the weights; the supported family
+        # runs head dim 64.
+        if d % 64 != 0 or depth == 0:
+            raise ValueError(
+                f"unsupported DINOv2 checkpoint: embed_dim={d}, depth={depth} "
+                "(expected head-dim-64 family; vitg14/SwiGLU is not supported)"
+            )
+        cfg = dataclasses.replace(cfg, embed_dim=d, depth=depth, num_heads=d // 64)
+
+    def stack(fn):
+        return np.stack([fn(i) for i in range(cfg.depth)])
+
+    if official:
+        patch_w = a(sd["patch_embed.proj.weight"])  # (D, 3, p, p)
+        patch_kernel = patch_w.reshape(d, -1).T  # (3*p*p, D)
+        patch_bias = a(sd["patch_embed.proj.bias"])
+        cls_token = a(sd["cls_token"])
+        pos_embed = a(sd["pos_embed"])
+
+        def g(i, name, transpose=False):
+            x = a(sd[f"blocks.{i}.{name}"])
+            return x.T if transpose else x
+
+        blocks = {
+            "norm1_scale": stack(lambda i: g(i, "norm1.weight")),
+            "norm1_bias": stack(lambda i: g(i, "norm1.bias")),
+            "qkv_kernel": stack(lambda i: g(i, "attn.qkv.weight", True)),
+            "qkv_bias": stack(lambda i: g(i, "attn.qkv.bias")),
+            "proj_kernel": stack(lambda i: g(i, "attn.proj.weight", True)),
+            "proj_bias": stack(lambda i: g(i, "attn.proj.bias")),
+            "ls1": stack(lambda i: g(i, "ls1.gamma")),
+            "norm2_scale": stack(lambda i: g(i, "norm2.weight")),
+            "norm2_bias": stack(lambda i: g(i, "norm2.bias")),
+            "fc1_kernel": stack(lambda i: g(i, "mlp.fc1.weight", True)),
+            "fc1_bias": stack(lambda i: g(i, "mlp.fc1.bias")),
+            "fc2_kernel": stack(lambda i: g(i, "mlp.fc2.weight", True)),
+            "fc2_bias": stack(lambda i: g(i, "mlp.fc2.bias")),
+            "ls2": stack(lambda i: g(i, "ls2.gamma")),
+        }
+        norm_scale = a(sd["norm.weight"])
+        norm_bias = a(sd["norm.bias"])
+    else:  # transformers naming
+        patch_w = a(sd["embeddings.patch_embeddings.projection.weight"])
+        patch_kernel = patch_w.reshape(d, -1).T
+        patch_bias = a(sd["embeddings.patch_embeddings.projection.bias"])
+        cls_token = a(sd["embeddings.cls_token"])
+        pos_embed = a(sd["embeddings.position_embeddings"])
+
+        def g(i, name):
+            return a(sd[f"encoder.layer.{i}.{name}"])
+
+        def qkv(i, part):
+            return [g(i, f"attention.attention.{n}.{part}") for n in ("query", "key", "value")]
+
+        blocks = {
+            "norm1_scale": stack(lambda i: g(i, "norm1.weight")),
+            "norm1_bias": stack(lambda i: g(i, "norm1.bias")),
+            "qkv_kernel": stack(lambda i: np.concatenate([w.T for w in qkv(i, "weight")], axis=1)),
+            "qkv_bias": stack(lambda i: np.concatenate(qkv(i, "bias"))),
+            "proj_kernel": stack(lambda i: g(i, "attention.output.dense.weight").T),
+            "proj_bias": stack(lambda i: g(i, "attention.output.dense.bias")),
+            "ls1": stack(lambda i: g(i, "layer_scale1.lambda1")),
+            "norm2_scale": stack(lambda i: g(i, "norm2.weight")),
+            "norm2_bias": stack(lambda i: g(i, "norm2.bias")),
+            "fc1_kernel": stack(lambda i: g(i, "mlp.fc1.weight").T),
+            "fc1_bias": stack(lambda i: g(i, "mlp.fc1.bias")),
+            "fc2_kernel": stack(lambda i: g(i, "mlp.fc2.weight").T),
+            "fc2_bias": stack(lambda i: g(i, "mlp.fc2.bias")),
+            "ls2": stack(lambda i: g(i, "layer_scale2.lambda1")),
+        }
+        norm_scale = a(sd["layernorm.weight"])
+        norm_bias = a(sd["layernorm.bias"])
+
+    grid = int(round(float(np.sqrt(pos_embed.shape[1] - 1))))
+    params = {
+        "cls_token": cls_token,
+        "pos_embed": pos_embed,
+        "patch_kernel": patch_kernel,
+        "patch_bias": patch_bias,
+        "blocks": blocks,
+        "norm_scale": norm_scale,
+        "norm_bias": norm_bias,
+    }
+    params = map_params(params, lambda x: torch.from_numpy(np.ascontiguousarray(x)))
+    return params, dataclasses.replace(cfg, pos_grid=grid)
+
+
+def load_params(checkpoint_path: str | None, cfg: DinoConfig = DinoConfig(), seed: int = 0):
+    """Converted torch weights from ``checkpoint_path`` (a torch-saved
+    state_dict ``.pth``, or a numpy ``.npz`` of the same keys); with no path,
+    ``init_params`` drawn from ``torch.Generator().manual_seed(seed)`` (a
+    draw that differs from the JAX package's).  Returns (params as CPU
+    tensors, cfg)."""
+    if checkpoint_path:
+        import os
+
+        if not os.path.exists(checkpoint_path):
+            raise FileNotFoundError(checkpoint_path)
+        if checkpoint_path.endswith(".npz"):
+            sd = dict(np.load(checkpoint_path))
+        else:
+            sd = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+            if isinstance(sd, dict) and "state_dict" in sd:
+                sd = sd["state_dict"]
+        return convert_torch_state_dict(sd, cfg)
+    return init_params(cfg, torch.Generator().manual_seed(seed)), cfg

@@ -6,11 +6,14 @@ Port of ``dynhor_tpu/ops/roi_align.py`` (``roi_align``,
 pose_initializtion.py:212).  Bilinear sampling is separable per axis, so a
 crop is two gathers with per-sample weights, rows then columns, and then
 the mean over each bin's ratio x ratio samples.  ``sampling_ratio`` is
-static (2), as in the reference's jit version; detectron2's adaptive
-``ceil(roi / out)`` samples per bin is the host path's, not ported here.
+static (2), as in the reference's jit version.  The host path
+(``roi_align_exact_np``, ``crop_mask_bool_np``) is numpy, copied operation
+for operation from the JAX package: detectron2's adaptive ``ceil(roi /
+out)`` samples per bin, in f64, feeding crop masks that threshold at 0.5.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -89,3 +92,54 @@ def roi_align(
     """``crop_and_resize`` of one (C, H, W) image and one (4,) box ->
     (C, S, S)."""
     return crop_and_resize(image[None], box_xyxy[None], output_size, sampling_ratio)[0]
+
+
+def roi_align_exact_np(
+    image: np.ndarray, box_xyxy: np.ndarray, output_size: int
+) -> np.ndarray:
+    """Exact detectron2 ROIAlign(aligned=True, sampling_ratio=0) in numpy.
+
+    Host-side preprocessing path (reference: run.py:47-50 operates per frame
+    on the host before optimization).  Uses the adaptive
+    ``ceil(bin)``-samples rule that the jit version approximates statically.
+
+    Args:
+      image: (C, H, W).
+      box_xyxy: (4,).
+
+    Returns: (C, S, S) float32.
+    """
+    c, h, w = image.shape
+    x1, y1, x2, y2 = [float(v) for v in box_xyxy]
+    roi_w, roi_h = x2 - x1, y2 - y1
+    start_x, start_y = x1 - 0.5, y1 - 0.5
+    s = output_size
+    bin_w, bin_h = roi_w / s, roi_h / s
+    grid_h = max(int(np.ceil(roi_h / s)), 1)
+    grid_w = max(int(np.ceil(roi_w / s)), 1)
+
+    def axis(start, bin_size, grid, size):
+        i = np.arange(s * grid)
+        pos = start + (i // grid) * bin_size + (i % grid + 0.5) * (bin_size / grid)
+        valid = (pos >= -1.0) & (pos <= size)
+        p = np.maximum(pos, 0.0)
+        i0 = np.minimum(np.floor(p), size - 1).astype(np.int64)
+        at_edge = i0 >= size - 1
+        i1 = np.minimum(i0 + 1, size - 1)
+        frac = np.where(at_edge, 0.0, p - i0)
+        return i0, i1, np.where(valid, 1 - frac, 0.0), np.where(valid, frac, 0.0)
+
+    yi0, yi1, wy0, wy1 = axis(start_y, bin_h, grid_h, h)
+    xi0, xi1, wx0, wx1 = axis(start_x, bin_w, grid_w, w)
+    img = image.astype(np.float64)
+    rows = img[:, yi0, :] * wy0[None, :, None] + img[:, yi1, :] * wy1[None, :, None]
+    vals = rows[:, :, xi0] * wx0[None, None, :] + rows[:, :, xi1] * wx1[None, None, :]
+    vals = vals.reshape(c, s, grid_h, s, grid_w).mean(axis=(2, 4))
+    return vals.astype(np.float32)
+
+
+def crop_mask_bool_np(mask: np.ndarray, box_xyxy: np.ndarray, output_size: int) -> np.ndarray:
+    """BitMasks.crop_and_resize equivalent: ROIAlign the 0/1 mask, threshold
+    at 0.5 -> bool (detectron2 BitMasks.crop_and_resize semantics)."""
+    out = roi_align_exact_np(mask[None].astype(np.float32), box_xyxy, output_size)[0]
+    return out >= 0.5

@@ -1,10 +1,10 @@
 """Prior-view rendering and DINO scoring, chunk by chunk (PyTorch).
 
-Port of ``dynhor_tpu/tracker/priors.py`` (random-view mode).  Behavioral
-reference: ObjTracker/utils/render.py:125-285 (6,000 random Phong renders
-of the template mesh at 384², distance 3.5 x radius) and
-pose_initializtion.py:188-246, 294-297 (per-view square crop -> 256² ->
-DINO features -> masked cosine against every frame).
+Port of ``dynhor_tpu/tracker/priors.py``.  Behavioral reference:
+ObjTracker/utils/render.py:125-285 (6,000 random, or azimuth x elevation x
+roll grid, Phong renders of the template mesh at 384², distance 3.5 x
+radius) and pose_initializtion.py:188-246, 294-297 (per-view square crop
+-> 256² -> DINO features -> masked cosine against every frame).
 
 Each chunk of views runs the whole chain on the device: one K3 launch
 rasters the chunk (``ops/raster_fused.rasterize_depth``), then Phong
@@ -16,10 +16,9 @@ prescreens every view at half resolution and rescores each frame's top
 candidates at full resolution; its ranking and calibration stay in numpy
 on the host, as in the reference.
 
-Not ported here (ROADMAP): the grid mode of ``prior_view_rotations``, the
-silhouette-IoU channel (``with_sil``), ``view_mesh`` sharding and
-``render_mesh_opencv_pose``.  PyTorch has no static shapes, so a short last
-chunk needs no identity padding views.
+Not ported here (ROADMAP): the silhouette-IoU channel (``with_sil``),
+``view_mesh`` sharding and ``render_mesh_opencv_pose``.  PyTorch has no
+static shapes, so a short last chunk needs no identity padding views.
 """
 from __future__ import annotations
 
@@ -59,6 +58,7 @@ class PriorConfig:
     # Per-tile face cap of the prior raster; prior_scores_batched counts the
     # cap its views need and uses that instead.
     max_faces_per_tile: int = 1280
+    grid: tuple[int, int, int] | None = None  # (azimuth, elevation, roll)
     # ViT compute dtype of the prior and frame features (forward only).
     dino_dtype: str = "bfloat16"
 
@@ -121,9 +121,19 @@ def compute_window(cfg: PriorConfig, radius: float, distance: float) -> int:
 def prior_view_rotations(
     cfg: PriorConfig, generator: torch.Generator | None = None
 ) -> Tensor:
-    """World-to-camera rotations of all prior views (N, 3, 3) on the CPU:
-    uniform on SO(3) (render.py:56-93 Avro'92), drawn from ``generator``."""
-    return G.random_rotations(cfg.num_views, generator)
+    """World-to-camera rotations of all prior views (N, 3, 3) on the CPU.
+
+    Random mode (``cfg.grid`` None): uniform on SO(3) (render.py:56-93
+    Avro'92), drawn from ``generator``.  Grid mode: the azimuth x elevation
+    look-at grid, each view rolled in the camera frame (render.py:95-123,
+    221-234); it draws nothing."""
+    if cfg.grid is None:
+        return G.random_rotations(cfg.num_views, generator)
+    na, ne, nr = cfg.grid
+    base = G.spherical_camera_rotations(na, ne)  # (na*ne+2, 3, 3)
+    rolls = G.roll_matrices(nr)  # (nr, 3, 3)
+    # Roll in the camera frame: R' = R_roll @ R.
+    return torch.einsum("rij,njk->rnik", rolls, base).reshape(-1, 3, 3)
 
 
 def _view_translations(R_cv: Tensor, distance: Tensor, center: Tensor) -> Tensor:

@@ -1,12 +1,13 @@
 """Bounding-box algebra (PyTorch).
 
-Port of ``dynhor_tpu/utils/bbox.py`` (the parts the prior-view crop uses).
+Port of ``dynhor_tpu/utils/bbox.py``.
 Behavioral reference: ObjTracker/utils/bbox.py (detectron2 BoxMode
 XYXY<->XYWH) and the tight-bbox extraction in ObjTracker/run.py:35-43 /
 pose_initializtion.py:201-208.  Boxes carry any leading batch dims.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -61,3 +62,21 @@ def mask_tight_bbox_xyxy(mask: Tensor, pad: float = 5.0) -> Tensor:
     x2 = (max_col.float() + pad).clamp_max(float(w))
     y2 = (max_row.float() + pad).clamp_max(float(h))
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def compute_iou(bbox1, bbox2):
+    """IoU of two xyxy boxes (ObjTracker/utils/bbox.py:143-163): tensors,
+    or numpy arrays on the host."""
+    if isinstance(bbox1, Tensor):
+        b1, b2 = bbox1, torch.as_tensor(bbox2, device=bbox1.device)
+        maximum, minimum = torch.maximum, torch.minimum
+    else:
+        b1, b2 = np.asarray(bbox1), np.asarray(bbox2)
+        maximum, minimum = np.maximum, np.minimum
+    a1 = (b1[..., 2] - b1[..., 0]) * (b1[..., 3] - b1[..., 1])
+    a2 = (b2[..., 2] - b2[..., 0]) * (b2[..., 3] - b2[..., 1])
+    lt = maximum(b1[..., :2], b2[..., :2])
+    rb = minimum(b1[..., 2:4], b2[..., 2:4])
+    wh = (rb - lt).clip(0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (a1 + a2 - inter)

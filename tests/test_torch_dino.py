@@ -70,3 +70,27 @@ def test_init_params_layout():
     k = p_t["blocks"]["fc1_kernel"]
     assert float(k.abs().max()) <= 0.04 and 0.01 < float(k.std()) < 0.03
     assert not any(a.requires_grad for a in jax.tree.leaves(p_t))
+
+
+def test_presets_and_loader_without_a_checkpoint():
+    """MODEL_PRESETS and config_for_model equal the JAX package's; with no
+    checkpoint, load_params draws init_params from the seed (the same seed,
+    the same weights; the draw differs from JAX's, so parity tests carry
+    weights across)."""
+    assert TD.MODEL_PRESETS == JD.MODEL_PRESETS
+    for name in TD.MODEL_PRESETS:
+        got = TD.config_for_model(name, smaller_edge_size=56)
+        want = JD.config_for_model(name, smaller_edge_size=56)
+        assert (got.embed_dim, got.depth, got.num_heads, got.smaller_edge_size, got.feat_size) == (
+            want.embed_dim, want.depth, want.num_heads, want.smaller_edge_size, want.feat_size)
+    with pytest.raises(ValueError, match="unknown DINOv2 model"):
+        TD.config_for_model("dinov2_vitg14")
+    cfg = TD.DinoConfig(pos_grid=4, **TINY)
+    p1, c1 = TD.load_params(None, cfg, seed=3)
+    p2, _ = TD.load_params(None, cfg, seed=3)
+    p3, _ = TD.load_params(None, cfg, seed=4)
+    assert c1 == cfg
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(p1), jax.tree.leaves(p2)))
+    assert not torch.equal(p1["pos_embed"], p3["pos_embed"])
+    with pytest.raises(FileNotFoundError):
+        TD.load_params("/nonexistent/dino.npz", cfg)

@@ -23,6 +23,10 @@ bad = [k for k in sys.modules if (k == "jax" or k.startswith(("jax.", "dynhor_tp
        and sys.modules[k] is not None]
 assert not bad, bad
 assert len(names) >= 15, names
+run_slice = {"dynhor_tpu_torch." + m for m in (
+    "run", "tracker.pipeline", "tracker.outliers", "io.config", "io.artifacts", "io.ingest",
+    "neus.data", "utils.profiling", "utils.constants", "tools.make_demo_data")}
+assert run_slice <= set(names), sorted(run_slice - set(names))
 print("ok", len(names))
 """
 

@@ -2,13 +2,16 @@
 depth-only raster (``rasterize_depth`` against ``rasterize_pallas``, whose
 K3 runs in interpret mode here), the prior render and its crop, the box,
 ROI-crop and camera helpers, the counted cap, and the ViT at the
-prescreen's downscale.  The slice as a whole is in test_torch_selection.py.
+prescreen's downscale, and the prior views of both modes (grid rotations
+within 1e-6).  The slice as a whole is in test_torch_selection.py.
 
 Tolerances: pix_to_face, hit masks, crop masks, boxes and overflow counts
 exact; depths, barycentrics, images and crops within 1e-5; the camera
 helpers within 1e-5 (relative for the translation init); ViT tokens within
 1e-4 (f32).  On the CPU the port runs K3's plain version.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -317,3 +320,27 @@ def test_vit_tokens_at_the_prescreen_downscale():
         tok_t = TD.forward_tokens_from_crop(params_t, _t(rgb), TD.DinoConfig(**kw)).numpy()
     assert tok_t.shape == (3, 4, 32)
     np.testing.assert_allclose(tok_t, tok_j, atol=1e-4)
+
+
+@pytest.mark.parametrize("grid", [None, (30, 10, 13), (6, 3, 1)])
+def test_prior_view_rotations_modes(grid):
+    """Grid mode (``random_render: false``): the JAX package's views within
+    1e-6, drawing nothing; random mode: uniform draws from the generator
+    (the same seed, the same views).  The port's config fields are the JAX
+    package's, less the two that the JAX package carries and never reads
+    (``face_chunk``, ``window``)."""
+    kw = dict(num_views=24, grid=grid)
+    cfg_t, cfg_j = TP.PriorConfig(**kw), JP.PriorConfig(**kw)
+    unread = {"face_chunk", "window"}
+    assert {f.name for f in dataclasses.fields(cfg_t)} == {f.name for f in dataclasses.fields(cfg_j)} - unread
+    got = TP.prior_view_rotations(cfg_t, torch.Generator().manual_seed(0))
+    if grid is None:
+        assert got.shape == (24, 3, 3)
+        again = TP.prior_view_rotations(cfg_t, torch.Generator().manual_seed(0))
+        assert torch.equal(got, again)
+    else:
+        na, ne, nr = grid
+        assert got.shape == ((na * ne + 2) * nr, 3, 3)
+        want = JP.prior_view_rotations(jax.random.PRNGKey(0), cfg_j)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    np.testing.assert_allclose(got @ got.transpose(1, 2), torch.eye(3).expand_as(got), atol=1e-5)
