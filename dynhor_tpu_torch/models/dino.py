@@ -13,9 +13,12 @@ selects the attention as in the JAX package: "xla" (the default) writes it
 out (matmul, softmax, matmul); "flash" and "splash", two TPU kernels there,
 both select ``ops/flash_attention.flash_attention`` here, one hand-written
 CUDA flash attention (bf16 at head dim 64 on the card, its plain version on
-the CPU).  There is no quiet switch back to "xla".  The path runs without
-recomputation (the ViT has no weight gradients, and the step fits in the
-card's memory).  ``load_params`` reads a torch state_dict (.pth, or .npz of
+the CPU).  There is no quiet switch back to "xla".  ``remat`` (the refine's
+``RefineConfig.dino_remat``) recomputes each block in the backward through
+``torch.utils.checkpoint``: the JAX package's True, "dots" and "frozen"
+policies differ only in which activations they save, and with frozen
+weights every one of them is the same per-block recomputation here; False
+keeps every activation.  ``load_params`` reads a torch state_dict (.pth, or .npz of
 the same keys) through ``convert_torch_state_dict``, or draws random
 weights from a seed.
 """
@@ -28,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.resize import _bicubic_matrix_ac, resize_bicubic_halfpix
@@ -209,25 +213,36 @@ def _interp_pos_embed(pos_embed: Tensor, grid0: int, gh: int, gw: int) -> Tensor
     return torch.cat([pos_embed[:, :1], out.to(pos_embed.dtype)], dim=1)
 
 
-def _trunk(params: dict[str, Any], x: Tensor, cfg: DinoConfig, gh: int, gw: int) -> Tensor:
+def _trunk(
+    params: dict[str, Any], x: Tensor, cfg: DinoConfig, gh: int, gw: int,
+    remat: bool | str = False,
+) -> Tensor:
     """cls + pos-embed + blocks + final LN on patch-embedded tokens
-    x (B, gh*gw, D); returns the patch tokens."""
+    x (B, gh*gw, D); returns the patch tokens.  A true ``remat`` (True,
+    "dots", "frozen") recomputes each block in the backward instead of
+    keeping its activations (the step's numbers are the same)."""
     b = x.shape[0]
     cls = params["cls_token"].expand(b, 1, cfg.embed_dim).to(x.dtype)
     x = torch.cat([cls, x], dim=1)
     pos = _interp_pos_embed(params["pos_embed"].float(), cfg.pos_grid, gh, gw)
     x = x + pos.to(x.dtype)
     blocks = params["blocks"]
+    recompute = bool(remat) and torch.is_grad_enabled()
     for i in range(cfg.depth):
-        x = _block(
-            x, {k: v[i] for k, v in blocks.items()}, cfg.num_heads, cfg.layer_norm_eps,
-            cfg.attn_impl,
-        )
+        args = (x, {k: v[i] for k, v in blocks.items()}, cfg.num_heads,
+                cfg.layer_norm_eps, cfg.attn_impl)
+        if recompute:
+            x = torch.utils.checkpoint.checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x = _block(*args)
     x = _layer_norm(x, params["norm_scale"], params["norm_bias"], cfg.layer_norm_eps)
     return x[:, 1:]
 
 
-def forward_tokens(params: dict[str, Any], images: Tensor, cfg: DinoConfig = DinoConfig()) -> Tensor:
+def forward_tokens(
+    params: dict[str, Any], images: Tensor, cfg: DinoConfig = DinoConfig(),
+    remat: bool | str = False,
+) -> Tensor:
     """ViT forward; final-layernormed PATCH tokens (B, N, D) of
     ImageNet-normalized images (B, 3, H, W), H and W divisible by the patch
     (dinov2 ``get_intermediate_layers(x)[0]``, norm=True)."""
@@ -237,7 +252,7 @@ def forward_tokens(params: dict[str, Any], images: Tensor, cfg: DinoConfig = Din
     x = images.reshape(b, c, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(b, gh * gw, c * p * p).to(params["patch_kernel"].dtype)
     x = x @ params["patch_kernel"] + params["patch_bias"]
-    return _trunk(params, x, cfg, gh, gw)
+    return _trunk(params, x, cfg, gh, gw, remat)
 
 
 @functools.lru_cache(maxsize=16)
@@ -292,13 +307,14 @@ def fused_patch_tokens(
 
 
 def forward_tokens_from_crop(
-    params: dict[str, Any], rgb_small: Tensor, cfg: DinoConfig = DinoConfig()
+    params: dict[str, Any], rgb_small: Tensor, cfg: DinoConfig = DinoConfig(),
+    remat: bool | str = False,
 ) -> Tensor:
     """ViT tokens from an un-normalized SMALL crop (B, 3, s, s) in [0, 1]:
     fused resize+normalize+patch-embed, then the shared trunk.  Equals
-    ``forward_tokens(params, normalize(resize(rgb, edge)), cfg)``."""
+    ``forward_tokens(params, normalize(resize(rgb, edge)), cfg, remat)``."""
     g = cfg.feat_size
-    return _trunk(params, fused_patch_tokens(params, rgb_small, cfg), cfg, g, g)
+    return _trunk(params, fused_patch_tokens(params, rgb_small, cfg), cfg, g, g, remat)
 
 
 def extract_features(

@@ -10,14 +10,15 @@ DKM-correspondence outlier voting with its re-joint.
 
 Two refine modes (system.parallel_refine):
   * True  (default): gating on selected rotations, then ALL frames refined
-    in one batched Adam loop.
+    in one batched Adam loop; with ``num_initializations`` K > 1, K
+    hypotheses per frame (the gate pick, its flips, silhouette-IoU
+    retrieval) refined in a tournament (refine.refine_poses_multihyp).
   * False: sequential per-frame loop threading the REFINED rotation into
     the next frame's gate, as the reference does (pose_initializtion.py:
-    404-457).
+    404-457); it refines the single gate pick.
 
-Not ported yet, and raising rather than skipped: multi-hypothesis init
-(``num_initializations > 1``) and sharding over several cards
-(``system.devices > 1``).
+Not ported yet, and raising rather than skipped: sharding over several
+cards (``system.devices > 1``).
 """
 from __future__ import annotations
 
@@ -189,11 +190,6 @@ def _mesh_arrays(mesh: MeshData, dev: torch.device) -> RF.MeshArrays:
 
 def _check_ported(sysc: dict[str, Any]) -> None:
     """Raise on the options whose slices are not ported yet."""
-    if int(sysc.get("num_initializations", 1)) > 1:
-        raise NotImplementedError(
-            "system.num_initializations > 1 (multi-hypothesis init) is not ported to"
-            " dynhor_tpu_torch yet (ROADMAP queue 1, item 6); set it to 1"
-        )
     n_dev = sysc.get("devices")
     if n_dev is not None and int(n_dev) > 1:
         raise NotImplementedError(
@@ -304,6 +300,13 @@ def track_sequence(
         prior_cfg, float(P.mesh_norm_radius(mesh_arrays.verts)),
         float(prior_cfg.distance_scale * radius),
     )
+    # Multi-hypothesis init (num_initializations; the reference plumbs it
+    # and never enables it, pose_initializtion.py:258,390): with K > 1 the
+    # scoring also returns the silhouette-IoU channel that seeds the extra
+    # hypotheses (selection.build_hypotheses).
+    num_init = int(sysc.get("num_initializations", 1))
+    hypc = sysc.get("hypotheses") or {}
+    with_sil = num_init > 1 and bool(hypc.get("sil_retrieval", True))
     with prof.phase("prior-scoring"):
         ps = pc.get("prescreen") or {}
         common = (
@@ -311,18 +314,21 @@ def track_sequence(
             mesh_arrays.face_uvs, mesh_arrays.texture, view_rots,
         )
         if bool(ps.get("enabled", True)):
-            scores = P.prior_scores_two_stage(
+            out = P.prior_scores_two_stage(
                 *common, crop_images, target_masks, gt_feats, cos_masks, prior_cfg,
                 window, host_batch=int(pc.get("host_batch", 1000)),
                 prescreen_edge=int(ps.get("edge", 112)),
                 prescreen_scale=int(ps.get("scale", 2)),
-                topk=int(ps.get("topk", 24)), device=dev,
+                topk=int(ps.get("topk", 24)), device=dev, with_sil=with_sil,
             )
         else:
-            scores = P.prior_scores_batched(
+            out = P.prior_scores_batched(
                 *common, gt_feats, cos_masks, prior_cfg, window,
                 host_batch=int(pc.get("host_batch", 1000)), device=dev,
+                with_sil=with_sil,
+                sil_masks=P.frame_sil_masks(target_masks) if with_sil else None,
             )
+        scores, sil_scores = out if with_sil else (out, None)
 
     # ---- K_rois + refine config ----
     K_rois = cam.get_K_crop_resize(
@@ -372,22 +378,51 @@ def track_sequence(
                     f" (mean residual {float(ang.min(1).values.mean()):.1f} deg)",
                     flush=True,
                 )
-            trans_init = autodepth(rot_init, bbox_xywh)  # (F, 3)
-            cap, act_cap = caps(rot_init, trans_init, K_rois)
+            if num_init > 1 and not oracle.get("enabled"):
+                hyp = S.build_hypotheses(
+                    rot_init, gate.selected_idx, priors_row, num_init,
+                    sil_scores=sil_scores,
+                    include_flips=bool(hypc.get("flips", True)),
+                    min_angle_deg=float(hypc.get("min_angle_deg", 30.0)),
+                )
+                # Autodepth and the caps over all F*K hypotheses.
+                flat_rot = hyp.rotations.to(dev).reshape(-1, 3, 3)  # (F*K, 3, 3)
+                flat_trans = autodepth(flat_rot, bbox_xywh.repeat_interleave(num_init, 0))
+                trans_hyp = flat_trans.reshape(f_frames, num_init, 3)
+                cap, act_cap = caps(
+                    flat_rot, flat_trans, K_rois.repeat_interleave(num_init, 0)
+                )
+            else:
+                hyp = None
+                trans_init = autodepth(rot_init, bbox_xywh)  # (F, 3)
+                cap, act_cap = caps(rot_init, trans_init, K_rois)
             refine_cfg = dataclasses.replace(
                 refine_cfg, max_faces_per_tile=cap, max_active_tiles=act_cap
             )
             joint_cap, joint_act = cap, act_cap
         with prof.phase("refine"):
-            res = RF.refine_poses(
-                mesh_arrays, targets, rot_init, trans_init, dino_params, dino_cfg,
-                refine_cfg, device=dev,
-            )
-            sel_idx = gate.selected_idx.cpu().numpy().astype(np.int32)
+            if hyp is not None:
+                res, sel_idx = _refine_hypotheses(
+                    mesh_arrays, targets, hyp, trans_hyp, dino_params, dino_cfg,
+                    refine_cfg, hypc, gate, dev,
+                )
+            else:
+                res = RF.refine_poses(
+                    mesh_arrays, targets, rot_init, trans_init, dino_params, dino_cfg,
+                    refine_cfg, device=dev,
+                )
+                sel_idx = gate.selected_idx.cpu().numpy().astype(np.int32)
         rot6d, trans = res.rot6d, res.translations
         losses, ious = res.final_loss.cpu().numpy(), res.final_iou.cpu().numpy()
     else:
         # Sequential parity mode: thread the REFINED rotation into the gate.
+        if num_init > 1:
+            print(
+                "note: num_initializations > 1 is a parallel-pipeline feature;"
+                " sequential parity mode refines the single gate pick"
+                " (reference control flow)",
+                flush=True,
+            )
         state = S.initial_state(dev)
         rot6d_list, trans_list, sel_list, loss_list, iou_list = [], [], [], [], []
         # ONE cap for all frames (max over the top-1 gate candidates), with
@@ -453,6 +488,47 @@ def track_sequence(
         refine_loss=losses,
         refine_iou=ious,
     )
+
+
+def _refine_hypotheses(
+    mesh_arrays, targets, hyp, trans_hyp, dino_params, dino_cfg, refine_cfg, hypc, gate, dev,
+):
+    """The multi-hypothesis refine with the ``hypotheses`` block's keys;
+    prints the winners and returns (result, selected prior index per
+    frame): the winners' source views, or after propagation (whose slots
+    hold neighbours' winners, not views) the gate's."""
+    prop_rounds = int(hypc.get("propagate_rounds", 1))
+    num_init = hyp.rotations.shape[1]
+    mres = RF.refine_poses_multihyp(
+        mesh_arrays, targets, hyp.rotations, trans_hyp, dino_params, dino_cfg,
+        refine_cfg, tournament_iters=hypc.get("tournament_iters", 25),
+        select=str(hypc.get("select", "viterbi")),
+        smooth_weight=float(hypc.get("smooth_weight", 1.0 / 45.0)),
+        propagate_rounds=prop_rounds, device=dev,
+    )
+    win = mres.winner.numpy()
+    hyp_src = hyp.indices.numpy()
+    n_non_gate = int((win != 0).sum())
+    if prop_rounds > 0:
+        print(
+            f"[hypotheses] {num_init} inits/frame + {prop_rounds}"
+            f" propagation round(s); final winner slots "
+            f"{win.tolist()} (0=own winner, 1..=neighbour"
+            f" winners); {n_non_gate}/{len(win)} frames took a"
+            " neighbour's pose",
+            flush=True,
+        )
+        sel_idx = gate.selected_idx.cpu().numpy().astype(np.int32)
+    else:
+        print(
+            f"[hypotheses] {num_init} inits/frame; winner slots "
+            f"{win.tolist()} (0=gate, src idx "
+            f"{hyp_src[np.arange(len(win)), win].tolist()}); "
+            f"{n_non_gate}/{len(win)} frames changed init",
+            flush=True,
+        )
+        sel_idx = hyp_src[np.arange(len(win)), win]
+    return mres.result, sel_idx
 
 
 def run_from_config(

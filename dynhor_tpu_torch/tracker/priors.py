@@ -14,11 +14,12 @@ window with a principal-point-shifted K, pixel-identical to the full frame
 followed by a crop.  The two-stage retrieval (``prior_scores_two_stage``)
 prescreens every view at half resolution and rescores each frame's top
 candidates at full resolution; its ranking and calibration stay in numpy
-on the host, as in the reference.
+on the host, as in the reference.  ``with_sil`` adds the silhouette-IoU
+channel of multi-hypothesis init: each view's crop mask at SIL_RES² against
+the frames' masks, in the same chunk as its K3 launch.
 
-Not ported here (ROADMAP): the silhouette-IoU channel (``with_sil``),
-``view_mesh`` sharding and ``render_mesh_opencv_pose``.  PyTorch has no
-static shapes, so a short last chunk needs no identity padding views.
+Not ported here (ROADMAP): ``view_mesh`` sharding.  PyTorch has no static
+shapes, so a short last chunk needs no identity padding views.
 """
 from __future__ import annotations
 
@@ -61,6 +62,20 @@ class PriorConfig:
     grid: tuple[int, int, int] | None = None  # (azimuth, elevation, roll)
     # ViT compute dtype of the prior and frame features (forward only).
     dino_dtype: str = "bfloat16"
+
+
+# Side of the square grid that the silhouette-IoU channel compares at: the
+# prior view's crop mask and the frame's crop mask, both square boxes around
+# the object's tight bbox with the same expansion, nearest-downsampled to
+# SIL_RES² (a scale-normalized shape similarity).
+SIL_RES = 32
+
+
+def frame_sil_masks(target_masks: Tensor) -> Tensor:
+    """(F, SIL_RES²) {0,1} object masks of the frames' tri-valued crop
+    targets (F, S, S), the frame side of the silhouette-IoU channel."""
+    m = resize_nearest((target_masks > 0).float(), SIL_RES, SIL_RES)
+    return m.reshape(m.shape[0], -1)
 
 
 def mesh_radius_center(verts: Tensor) -> tuple[Tensor, Tensor]:
@@ -217,6 +232,8 @@ def prior_scores_and_rotations(
     cos_masks: Tensor,
     cfg: PriorConfig,
     window: int,
+    with_sil: bool = False,
+    sil_masks: Tensor | None = None,
 ):
     """The (F, N) masked-cosine score matrix of all frames against all
     views, ``cfg.view_chunk`` views at a time, on the tensors' device.
@@ -226,27 +243,45 @@ def prior_scores_and_rotations(
       gt_feats: (F, P, D) L2-normalized DINO features of the frame crops.
       cos_masks: (F, P) {0,1} object masks at token resolution.
       window: render window side (``compute_window``).
+      with_sil: also return the (F, N) silhouette-IoU matrix: each view's
+        crop mask nearest-downsampled to SIL_RES², IoU = inter / max(union,
+        1) against ``sil_masks``, computed in the chunk of its K3 launch.
+      sil_masks: (F, SIL_RES²) {0,1} frame masks (``frame_sil_masks``),
+        required iff with_sil.
 
-    Returns (scores (F, N), overflow () int32, the max over views).
+    Returns (scores (F, N), overflow () int32, the max over views), or
+    (scores, sil (F, N), overflow) when with_sil.
     """
+    if with_sil and sil_masks is None:
+        raise ValueError("with_sil=True requires sil_masks")
     radius, center = mesh_radius_center(verts)
     distance = cfg.distance_scale * radius
     K_win = _window_camera(cfg, window, verts.device)
     cos_sum = cos_masks.sum(1).clamp_min(1e-6)  # (F,)
-    scores, overflow = [], []
+    scores, sils, overflow = [], [], []
     for s in range(0, view_rotations.shape[0], cfg.view_chunk):
         R = view_rotations[s : s + cfg.view_chunk]
         rgba, _, ov = _render_views(
             verts, faces, face_uvs, texture, R, _view_translations(R, distance, center),
             K_win, window, cfg.max_faces_per_tile,
         )
-        crops, _, _ = _crop_view(rgba, cfg.crop_size, cfg.bbox_expansion)
+        crops, crop_masks, _ = _crop_view(rgba, cfg.crop_size, cfg.bbox_expansion)
         feats = _dino_feats_of_crops(dino_params, dino_cfg, crops, cfg.dino_dtype)
         sim = torch.einsum("fpd,cpd->fcp", gt_feats, feats)  # cosine per token
         masked = torch.einsum("fcp,fp->fc", sim, cos_masks)
         scores.append(masked / cos_sum[:, None])
         overflow.append(ov.max())
-    return torch.cat(scores, dim=1), torch.stack(overflow).max()
+        if with_sil:
+            # Sums of {0,1} in f32 are exact, so the IoU is one division.
+            m_sil = resize_nearest(crop_masks.float(), SIL_RES, SIL_RES)
+            m_sil = m_sil.reshape(m_sil.shape[0], -1)  # (C, SIL_RES²)
+            inter = torch.einsum("fp,cp->fc", sil_masks, m_sil)
+            union = sil_masks.sum(1)[:, None] + m_sil.sum(1)[None, :] - inter
+            sils.append(inter / union.clamp_min(1.0))
+    ov_max = torch.stack(overflow).max()
+    if with_sil:
+        return torch.cat(scores, dim=1), torch.cat(sils, dim=1), ov_max
+    return torch.cat(scores, dim=1), ov_max
 
 
 @torch.inference_mode()
@@ -308,7 +343,9 @@ def prior_scores_batched(
     window: int,
     host_batch: int = 1000,
     device: str | torch.device | None = None,
-) -> Tensor:
+    with_sil: bool = False,
+    sil_masks=None,
+):
     """``prior_scores_and_rotations`` over all views in host batches of
     ``host_batch`` views, at a per-tile cap counted for these views.
 
@@ -320,7 +357,8 @@ def prior_scores_batched(
     device, moved to ``device`` (None = the CUDA card; "cpu" runs the
     kernels' plain versions).
 
-    Returns (F, N) scores on ``device``.
+    Returns (F, N) scores on ``device``, or (scores, sil scores) when
+    with_sil.
     """
     dev = resolve_device(device)
     verts, faces, face_uvs, texture, view_rotations = _place(
@@ -329,6 +367,8 @@ def prior_scores_batched(
     dino_params = _place_params(dino_params, cfg.dino_dtype, dev)
     gt_feats = torch.as_tensor(gt_feats, dtype=torch.float32, device=dev)
     cos_masks = torch.as_tensor(cos_masks, dtype=torch.float32, device=dev)
+    if sil_masks is not None:
+        sil_masks = torch.as_tensor(sil_masks, dtype=torch.float32, device=dev)
     n = view_rotations.shape[0]
     host_batch = min(host_batch, n)
     f_total = int(faces.shape[0])
@@ -344,11 +384,12 @@ def prior_scores_batched(
         outs = []
         max_ov = 0
         for i in range(0, n, host_batch):
-            scores, ov = prior_scores_and_rotations(
+            *mats, ov = prior_scores_and_rotations(
                 dino_params, dino_cfg, verts, faces, face_uvs, texture,
                 view_rotations[i : i + host_batch], gt_feats, cos_masks, cfg_l, window,
+                with_sil, sil_masks,
             )
-            outs.append(scores)
+            outs.append(mats)
             max_ov = max(max_ov, int(ov))
         if max_ov == 0 or cfg_l.max_faces_per_tile >= f_total:
             break
@@ -365,7 +406,8 @@ def prior_scores_batched(
             f" full-mesh cap ({max_ov} dropped) — scores may be corrupted",
             flush=True,
         )
-    return torch.cat(outs, dim=1)
+    cat = tuple(torch.cat([o[j] for o in outs], dim=1) for j in range(len(outs[0])))
+    return cat if with_sil else cat[0]
 
 
 def prior_scores_two_stage(
@@ -387,7 +429,8 @@ def prior_scores_two_stage(
     prescreen_scale: int = 2,
     topk: int = 24,
     device: str | torch.device | None = None,
-) -> Tensor:
+    with_sil: bool = False,
+):
     """Two-stage prior retrieval: a cheap prescreen of ALL views, then a
     full-resolution rescore of the union of each frame's top ``topk``.
 
@@ -406,18 +449,26 @@ def prior_scores_two_stage(
       target_masks: (F, S, S) tri-valued masks.
       gt_feats/cos_masks: full-resolution frame features (stage B).
       device: None = the CUDA card; "cpu" runs the plain versions.
+      with_sil: also return the (F, N) silhouette-IoU matrix, from the
+        prescreen pass (the SIL_RES grid does not depend on the render's
+        resolution).
 
-    Returns (F, N) scores on the full-resolution scale, on ``device``.
+    Returns (F, N) scores on the full-resolution scale, on ``device`` (and
+    the sil scores if with_sil).
     """
     dev = resolve_device(device)
     n = int(view_rotations.shape[0])
     f_frames = int(gt_feats.shape[0])
     common = (dino_params, dino_cfg, verts, faces, face_uvs, texture)
+    sil_masks = None
+    if with_sil:
+        sil_masks = frame_sil_masks(torch.as_tensor(target_masks, device=dev))
     # Prescreen only pays off when it prunes: below ~2 candidate sets'
     # worth of views, score everything at full resolution directly.
     if n <= 2 * topk * max(f_frames, 1) or n <= 4 * topk:
         return prior_scores_batched(
-            *common, view_rotations, gt_feats, cos_masks, cfg, window, host_batch, dev
+            *common, view_rotations, gt_feats, cos_masks, cfg, window, host_batch, dev,
+            with_sil=with_sil, sil_masks=sil_masks,
         )
 
     # ---- stage A: low-resolution prescreen of all N views ----
@@ -437,10 +488,12 @@ def prior_scores_two_stage(
     gt_feats_lo, cos_masks_lo = frame_gt_features(
         dino_params, dino_cfg_lo, crop_images, target_masks, cfg.dino_dtype, dev
     )
-    scores_lo = prior_scores_batched(
+    out_lo = prior_scores_batched(
         dino_params, dino_cfg_lo, verts, faces, face_uvs, texture, view_rotations,
         gt_feats_lo, cos_masks_lo, cfg_lo, window_lo, host_batch, dev,
+        with_sil=with_sil, sil_masks=sil_masks,
     )
+    scores_lo, sil_scores = out_lo if with_sil else (out_lo, None)
     scores_lo_np = scores_lo.cpu().numpy()
 
     # ---- stage B: full-resolution rescore of the per-frame top-K union ----
@@ -470,7 +523,48 @@ def prior_scores_two_stage(
     # max/std statistics stay on the full-resolution scale.
     scores = np.minimum(scores, sub_np.min(axis=1, keepdims=True) - 1e-4)
     scores[np.arange(f_frames)[:, None], idx[None, :]] = sub_np
+    if with_sil:
+        return torch.as_tensor(scores, device=dev), sil_scores
     return torch.as_tensor(scores, device=dev)
+
+
+def render_mesh_opencv_pose(
+    verts,
+    faces,
+    face_uvs,
+    texture,
+    R_cv,
+    t_cv,
+    K,
+    h: int,
+    w: int,
+    face_chunk: int = 512,
+    device: str | torch.device | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Render a mesh under an explicit OpenCV pose (the parity surface of
+    ObjTracker/utils/render.py:193-219 render_mesh_opencv_pose): the dense
+    hard raster, Phong shading under the prior views' lights.
+
+    Args: verts (V, 3), faces (F, 3), face_uvs (F, 3, 2), texture (Ht, Wt,
+    3), R_cv (3, 3), t_cv (3,), K (3, 3) pixel intrinsics; tensors or
+    arrays.  device: None = the CUDA card; "cpu" runs on the CPU.
+
+    Returns (rgba (H, W, 4), depth (H, W) with -1 background) on ``device``.
+    """
+    dev = resolve_device(device)
+
+    def put(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    faces = torch.as_tensor(faces, device=dev).long()
+    verts_cam = (put(verts) @ put(R_cv).T + put(t_cv))[None]  # (1, V, 3)
+    vn = rz.compute_vertex_normals(verts_cam, faces)
+    vp = rz.project_perspective(verts_cam, put(K))
+    frag = rz.rasterize(vp, faces, (h, w), face_chunk=face_chunk)
+    img = phong_shade(
+        frag, faces, verts_cam, vn, put(face_uvs), put(texture), default_lights(dev)
+    )
+    return img[0], frag.zbuf[0]
 
 
 def frame_gt_features(

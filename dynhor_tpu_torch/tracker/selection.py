@@ -21,11 +21,18 @@ tensors: every decision is a tensor select, so the loop never reads the
 device.  Ties follow the reference: the top-k is a stable descending sort
 (lower index first on equal scores, as ``jax.lax.top_k``), and argmax /
 argmin take the first index.
+
+``build_hypotheses`` (multi-hypothesis init, ``num_initializations > 1``)
+builds each frame's K rotation inits in numpy on the host, operation for
+operation as the JAX package does: the gate pick, its two 180-degree
+flips, then prior views by silhouette IoU (diverse first, then relaxed) or
+by farthest-point sampling.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.geometry import rotation_angle_difference
@@ -116,3 +123,108 @@ def gate_all_frames(scores: Tensor, priors_row: Tensor) -> GateResult:
         rots.append(res.rotation_init)
         idxs.append(res.selected_idx)
     return GateResult(torch.stack(rots), torch.stack(idxs))
+
+
+# ---------------------------------------------------------------------------
+# Multi-hypothesis initialization (num_initializations > 1)
+# ---------------------------------------------------------------------------
+
+class Hypotheses(NamedTuple):
+    rotations: Tensor  # (F, K, 3, 3) row-convention rotation inits
+    # (F, K) int32 provenance: prior-view index; -1 = a 180-degree flip of
+    # the gate pick; -2 = the gate's fallback (no prior selected).
+    indices: Tensor
+
+
+# 180-degree camera-frame rotations about X and Y: in the row convention
+# (verts @ R) a camera-frame rotation M composes as R @ M (both are
+# symmetric diag(+-1)).  The silhouette-preserving ambiguities of flat-ish
+# objects.
+_FLIP_X = np.diag(np.array([1.0, -1.0, -1.0], np.float32))
+_FLIP_Y = np.diag(np.array([-1.0, 1.0, -1.0], np.float32))
+
+
+def _pairwise_angle_deg(R: np.ndarray, chosen: np.ndarray) -> np.ndarray:
+    """(N,) least geodesic angle (deg) of each rotation in R to any chosen."""
+    tr = np.einsum("nab,mab->nm", R, chosen)  # trace(R_i @ C_j^T), (N, M)
+    cos = np.clip((tr - 1.0) / 2.0, -1.0, 1.0)
+    return np.degrees(np.arccos(cos)).min(axis=1)
+
+
+def build_hypotheses(
+    rotation_init,
+    selected_idx,
+    priors_row,
+    k: int,
+    sil_scores=None,
+    include_flips: bool = True,
+    min_angle_deg: float = 30.0,
+) -> Hypotheses:
+    """Per-frame rotation hypotheses for the multi-init refine.
+
+    Slots per frame:
+      0        the gated pick;
+      1, 2     its 180-degree camera-frame flips about X, then Y, when
+               ``include_flips``;
+      rest     greedy silhouette-IoU retrieval over ``sil_scores``,
+               skipping views within ``min_angle_deg`` of a chosen
+               hypothesis, relaxed to the best remaining if that pool runs
+               dry; without sil scores, farthest-point sampling over the
+               prior views.
+
+    Args:
+      rotation_init: (F, 3, 3) gate picks (``gate_all_frames``).
+      selected_idx: (F,) gate indices (-1 = fallback).
+      priors_row: (N, 3, 3) row-convention prior rotations.
+      sil_scores: optional (F, N) silhouette-IoU matrix.
+      (Tensors on any device, or arrays.)
+
+    Returns Hypotheses of CPU tensors.
+    """
+    R0 = torch.as_tensor(rotation_init).cpu().numpy().astype(np.float32)  # (F, 3, 3)
+    sel = torch.as_tensor(selected_idx).cpu().numpy().astype(np.int32)
+    priors = torch.as_tensor(priors_row).cpu().numpy().astype(np.float32)
+    sil = None if sil_scores is None else torch.as_tensor(sil_scores).cpu().numpy()
+    f_frames = R0.shape[0]
+    n = priors.shape[0]
+    k = max(1, min(k, n + 3))
+
+    rots = np.zeros((f_frames, k, 3, 3), np.float32)
+    idxs = np.full((f_frames, k), -1, np.int32)
+    for f in range(f_frames):
+        chosen = [R0[f]]
+        ids = [int(sel[f]) if sel[f] >= 0 else -2]
+        if include_flips and len(chosen) < k:
+            chosen.append(R0[f] @ _FLIP_X)
+            ids.append(-1)
+        if include_flips and len(chosen) < k:
+            chosen.append(R0[f] @ _FLIP_Y)
+            ids.append(-1)
+        if len(chosen) < k:
+            stack = np.stack(chosen)
+            if sil is not None:
+                order = np.argsort(-sil[f])
+                # The diverse pass, then the relaxed fill.
+                for relax in (False, True):
+                    for v in order:
+                        if len(chosen) >= k:
+                            break
+                        if v in ids:
+                            continue
+                        ang = _pairwise_angle_deg(priors[v : v + 1], stack)[0]
+                        if relax or ang >= min_angle_deg:
+                            chosen.append(priors[v])
+                            ids.append(int(v))
+                            stack = np.stack(chosen)
+                    if len(chosen) >= k:
+                        break
+            else:
+                while len(chosen) < k:
+                    ang = _pairwise_angle_deg(priors, stack)
+                    v = int(np.argmax(ang))
+                    chosen.append(priors[v])
+                    ids.append(v)
+                    stack = np.stack(chosen)
+        rots[f] = np.stack(chosen[:k])
+        idxs[f] = np.asarray(ids[:k], np.int32)
+    return Hypotheses(torch.as_tensor(rots), torch.as_tensor(idxs))

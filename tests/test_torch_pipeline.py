@@ -29,7 +29,24 @@ JAX package's ``run_from_config`` writes (config.yaml byte for byte,
 board/ with an events file, one npz per frame with R, T, K read back by the
 JAX package's ``load_pose_npz``), its poses within FINAL_TOL of the JAX
 run's.  Without a card and without ``--device`` it raises before any work;
-``num_initializations: 2`` and ``devices: 2`` raise.
+``devices: 2`` raises.
+
+Multi-hypothesis init (``num_initializations: 4``, the default
+``hypotheses`` block with 4 tournament steps of the 8) in grid mode, the
+port given the JAX package's grid rotations (its own agree within 1e-6):
+the silhouette-IoU matrix and the hypotheses exactly the JAX package's; the
+tournament losses within a relative 1e-2 (the refine losses' bound); the
+winners equal wherever the best loss beats the runner-up by more than that;
+``selected_idx`` exact; the poses within INIT_TOL and FINAL_TOL.  In
+sequential mode the port prints the JAX package's note and refines the gate
+pick.
+
+``python -m dynhor_tpu_torch.vis --device cpu`` (its ``main``) on a copy of
+the JAX run's experiment directory writes the files that ``vis.py`` writes
+on another copy: the same render_res/ jpgs, their decoded pixels within 1
+level of 255 (the composites agree within 1e-5 before the uint8 cast,
+tests/test_torch_vis.py).  Without a card and without ``--device`` it
+raises before writing.
 """
 import copy
 import filecmp
@@ -237,13 +254,123 @@ def test_run_without_a_device_needs_a_card(tmp_path, monkeypatch):
     assert not (tmp_path / "exps").exists()
 
 
-@pytest.mark.parametrize("key,value", [("num_initializations", 2), ("devices", 2)])
+@pytest.mark.parametrize("key,value", [("devices", 2)])
 def test_unported_options_raise(demo_dir, key, value):  # noqa: F811
     cfg = copy.deepcopy(TCFG.DEFAULTS)
     cfg["system"][key] = value
     seq = TPL.load_sequence(str(demo_dir))
     with pytest.raises(NotImplementedError, match="not ported"):
         TPL.track_sequence(cfg, seq, None, None, device="cpu")
+
+
+class _Spy:
+    """Wraps a module function and keeps each call's arguments and result."""
+
+    def __init__(self, module, name, monkeypatch):
+        self.fn, self.calls = getattr(module, name), []
+        monkeypatch.setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.append((args, kw, out))
+        return out
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.mid
+@pytest.mark.parametrize("parallel", [True, False], ids=["par", "seq"])
+def test_track_sequence_multihyp_matches(box, monkeypatch, capsys, parallel):
+    from dynhor_tpu.tracker import refine as JRF
+    from dynhor_tpu.tracker import selection as JSEL
+    from dynhor_tpu_torch.tracker import refine as TRF
+    from dynhor_tpu_torch.tracker import selection as TSEL
+
+    cfg = _mode_config(box["cfg"], "grid", parallel)
+    cfg["system"]["num_initializations"] = 4
+    cfg["system"]["hypotheses"]["tournament_iters"] = 4
+    grid = np.array(JP.prior_view_rotations(jax.random.PRNGKey(0), JP.PriorConfig(grid=tuple(GRID))))
+    spies = {}
+    if parallel:
+        for tag, sel_mod, rf_mod in (("jax", JSEL, JRF), ("torch", TSEL, TRF)):
+            spies[tag] = (_Spy(sel_mod, "build_hypotheses", monkeypatch),
+                          _Spy(rf_mod, "refine_poses_multihyp", monkeypatch))
+        want = JPL.track_sequence(cfg, box["seq"], box["ann"], box["mesh"])
+    else:
+        want = box["results"][("grid", False)]
+    capsys.readouterr()
+    got = TPL.track_sequence(cfg, box["seq"], box["ann"], box["mesh"], view_rotations=grid,
+                             device="cpu")
+    printed = capsys.readouterr().out
+    np.testing.assert_array_equal(got.selected_idx, want.selected_idx)
+    assert got.selected_idx.dtype == want.selected_idx.dtype
+    if parallel:
+        (hj, mj), (ht, mt) = spies["jax"], spies["torch"]
+        assert len(hj.calls) == len(ht.calls) == 1 == len(mj.calls) == len(mt.calls)
+        sil_j, sil_t = hj.calls[0][1]["sil_scores"], ht.calls[0][1]["sil_scores"]
+        assert sil_t.shape == (FRAMES, len(grid))
+        np.testing.assert_array_equal(_np(sil_t), _np(sil_j))
+        hyp_j, hyp_t = hj.calls[0][2], ht.calls[0][2]
+        np.testing.assert_array_equal(hyp_t.indices.numpy(), np.asarray(hyp_j.indices))
+        np.testing.assert_array_equal(hyp_t.rotations.numpy(), np.asarray(hyp_j.rotations))
+        assert (hyp_t.indices.numpy()[:, 1:3] == -1).all() and (hyp_t.indices.numpy()[:, 3] >= 0).all()
+        res_j, res_t = mj.calls[0][2], mt.calls[0][2]
+        lj, lt = np.asarray(res_j.tournament_loss), _np(res_t.tournament_loss)
+        np.testing.assert_allclose(lt, lj, rtol=1e-2)
+        srt = np.sort(lj, axis=1)
+        decided = (srt[:, 1] - srt[:, 0]) > 1e-2 * np.abs(srt[:, 0])
+        win_j, win_t = np.asarray(res_j.winner), res_t.winner.numpy()
+        np.testing.assert_array_equal(win_t[decided], win_j[decided])
+        print(f"near-tie frames {np.nonzero(~decided)[0].tolist()}; winners {win_t.tolist()} "
+              f"(JAX {win_j.tolist()})")
+        assert printed.count("[hypotheses] 4 inits/frame + 1 propagation round(s)") == 1
+    else:
+        assert "note: num_initializations > 1 is a parallel-pipeline feature" in printed
+    for name, tol in (("init_rotations_row", INIT_TOL), ("init_translations", INIT_TOL),
+                      ("rotations_row", FINAL_TOL), ("translations", FINAL_TOL)):
+        np.testing.assert_allclose(getattr(got, name), np.asarray(getattr(want, name)),
+                                   atol=tol, err_msg=name)
+    np.testing.assert_allclose(got.refine_loss, want.refine_loss, rtol=1e-2)
+
+
+def test_vis_module_writes_the_same_overlays(box, tmp_path, monkeypatch):
+    import importlib.util
+    import shutil
+
+    from PIL import Image
+
+    from dynhor_tpu.utils import compcache
+    from dynhor_tpu_torch import vis as TVIS
+
+    roots = {tag: tmp_path / tag for tag in ("jax", "torch")}
+    for root in roots.values():
+        shutil.copytree(box["jax_exp"], root / "boxseq" / "pred")
+    cfg = str(roots["jax"] / "boxseq" / "pred" / "config.yaml")
+    spec = importlib.util.spec_from_file_location("vis_script", REPO / "vis.py")
+    vis_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vis_script)
+    monkeypatch.setattr(compcache, "enable_persistent_cache", lambda *a, **k: "")
+    monkeypatch.setattr(sys, "argv", ["vis.py", "--config_path", cfg,
+                                      "--exps_root", str(roots["jax"])])
+    vis_script.main()
+    argv = ["--config_path", cfg, "--exps_root", str(roots["torch"])]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TVIS.main(argv)
+    assert not (roots["torch"] / "boxseq" / "pred" / "render_res").exists()
+    written = TVIS.main(argv + ["--device", "cpu"])
+    assert _tree(roots["torch"]) == _tree(roots["jax"])
+    names = sorted(os.listdir(roots["jax"] / "boxseq" / "pred" / "render_res"))
+    assert names == [f"{fid}.jpg" for fid in box["seq"].frame_ids]
+    assert sorted(os.path.basename(p) for p in written) == names
+    for name in names:
+        a, b = (np.asarray(Image.open(root / "boxseq" / "pred" / "render_res" / name), np.int16)
+                for root in (roots["torch"], roots["jax"]))
+        assert a.shape == (120, 160, 3)
+        assert int(np.abs(a - b).max()) <= 1, name
 
 
 def test_profiler_phases_and_trace(tmp_path):
