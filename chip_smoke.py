@@ -45,7 +45,10 @@ Phases; any failure exits non-zero.
    against the CPU's plain path and against ``soft_silhouette_tiled`` on
    the card, which computes the same function.
 2e. K6: the gather probe's forms A-H (``tools/probe_gather``), each kernel
-   against its plain version, with kernel, plain and library times.
+   against its plain version (form H also bit for bit against the CPU's),
+   and its four timed shapes against their library calls in turns: device
+   time per call (a CUDA graph of 20 calls), host time to enqueue, wall
+   time per call, beside the byte bound.
 3. The fine refine: ``refine_poses`` in fine mode, random-weight ViT-B/14
    at 518², bf16, 8 frames, 10 steps, once with the written-out attention
    (``attn_impl="xla"``: no K5 launch) and once with ``attn_impl="flash"``
@@ -116,6 +119,19 @@ Phases; any failure exits non-zero.
    kernel launched.  Then ``Visualizer.draw_mesh`` of the box's tracked
    poses on the card and on the CPU: the overlay masks agree except on
    silhouette-boundary pixels (counted), the colours within 1e-4.
+
+8. Multi-sequence pooling at full width: ``python -m
+   dynhor_tpu_torch.run_multi`` (its ``main``, in this process) on phase
+   6's shoes sequence and a 12-frame 480x640 kettle sequence from the
+   demo-data twin, at the ``io/config.py`` defaults (6,000 random views a
+   sequence in one stage, a random-weight ViT-B/14 at 518² in bf16, 100
+   refine steps of the 24 pooled frames in two groups of 16, the second
+   padded by 8, and 200 joint steps a sequence): both sequences' artifacts,
+   the counted caps and no overflow, K1/K2 once per group step and joint
+   step (600), K3 once per view chunk of each scoring call; the seconds per
+   phase, the peak memory, each sequence's caps in the pooled batch and
+   K1/K2's times at the pooled cap.  Then tests/test_multiseq.py's two
+   boxes pooled, on the card and on the CPU, poses within 1e-4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -299,19 +315,6 @@ def read_launches() -> dict:
     return {key: fn.launches for key, fn in _counted(kernels).items()}
 
 
-def host_us(fn, reps: int = 100) -> float:
-    """Host time per call of fn() to enqueue its work (no synchronization
-    inside the loop), in microseconds, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
 def wall(fn):
     """(result, seconds) of fn() between two device synchronizations."""
     torch.cuda.synchronize()
@@ -397,9 +400,50 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, ops, nbytes, peak=PEAK
     }
 
 
+def check_k1_k2(rows, counts, tw, g, where: str) -> dict:
+    """K1 and K2 on (rows, counts) against their plain versions on the same
+    inputs (K2 on the cotangent ``g``); fails the run through ``check``:
+    silhouette 1e-5, mass 1e-4 relative, zbuf 1e-5, pix_to_face exact,
+    d(xy) rtol 1e-4 and atol 1e-5 x max.  Returns the errors."""
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.ops import raster_fused as RFU
+
+    args = (TILE, tw, SIGMA)
+    mass, zmin, jbest = kernels.fused_fwd(rows, counts, *args, 1e-2)
+    mass_p, zmin_p, jbest_p = RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2)
+    torch.cuda.synchronize()
+    sil_err = float((torch.exp(-mass) - torch.exp(-mass_p)).abs().max())
+    mass_err = float(((mass - mass_p).abs() / mass_p.abs().clamp_min(1.0)).max())
+    hit = zmin_p < 1.5e38
+    check(bool((hit == (zmin < 1.5e38)).all()), f"{where}: K1 hit masks differ")
+    z_err = float((zmin - zmin_p)[hit].abs().max()) if bool(hit.any()) else 0.0
+    n_mism = int((hit & (jbest != jbest_p)).sum())
+    del mass, zmin, jbest, mass_p, zmin_p, jbest_p
+    dxy = kernels.sil_bwd(rows, counts, g, *args)
+    dxy_p = RFU.tile_mass_grad_plain(rows, counts, g, *args)
+    torch.cuda.synchronize()
+    scale = float(dxy_p.abs().max())
+    k2_err = float((dxy - dxy_p).abs().max())
+    k2_ok = bool(((dxy - dxy_p).abs() <= 1e-5 * scale + 1e-4 * dxy_p.abs()).all())
+    print(
+        f"[{where}] K1 vs plain on rows {tuple(rows.shape)}: sil max abs err {sil_err:.3g}, "
+        f"mass max rel err {mass_err:.3g}, zbuf max abs err {z_err:.3g} over {int(hit.sum())} "
+        f"hit pixels, pix_to_face mismatches {n_mism}; K2 vs plain: d(xy) max abs err "
+        f"{k2_err:.3g} (max |d(xy)| {scale:.3g})", flush=True,
+    )
+    check(sil_err <= 1e-5, f"{where}: K1 silhouette error {sil_err} > 1e-5")
+    check(mass_err <= 1e-4, f"{where}: K1 mass relative error {mass_err} > 1e-4")
+    check(z_err <= 1e-5, f"{where}: K1 zbuf error {z_err} > 1e-5")
+    check(n_mism == 0, f"{where}: K1 pix_to_face differs at {n_mism} pixels")
+    check(k2_ok, f"{where}: K2 d(xy) outside rtol 1e-4, atol 1e-5 x max")
+    return {"sil": sil_err, "mass": mass_err, "zbuf": z_err, "p2f": n_mism, "dxy": k2_err,
+            "dxy_max": scale}
+
+
 def phase_kernels(dev, sc, card: str) -> list[dict]:
     from dynhor_tpu_torch import kernels
     from dynhor_tpu_torch.ops import raster_fused as RFU
+    from dynhor_tpu_torch.tools._timing import host_us
 
     mesh, _, _, _, vp, _, cap, act_cap = sc
     rows, counts, tw = RFU.kernel_inputs(
@@ -415,43 +459,16 @@ def phase_kernels(dev, sc, card: str) -> list[dict]:
     )
     args = (TILE, tw, SIGMA)
 
-    # K1 against its plain version.
-    mass, zmin, jbest = kernels.fused_fwd(rows, counts, *args, 1e-2)
-    mass_p, zmin_p, jbest_p = RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2)
-    torch.cuda.synchronize()
-    sil_err = float((torch.exp(-mass) - torch.exp(-mass_p)).abs().max())
-    mass_err = float(((mass - mass_p).abs() / mass_p.abs().clamp_min(1.0)).max())
-    hit = zmin_p < 1.5e38
-    check(bool((hit == (zmin < 1.5e38)).all()), "K1 hit masks differ")
-    z_err = float((zmin - zmin_p)[hit].abs().max()) if bool(hit.any()) else 0.0
-    mism = hit & (jbest != jbest_p)
-    n_mism = int(mism.sum())
-    print(
-        f"[kernels] K1 vs plain: sil max abs err {sil_err:.3g}, mass max rel err "
-        f"{mass_err:.3g}, zbuf max abs err {z_err:.3g} over {int(hit.sum())} hit "
-        f"pixels, pix_to_face mismatches {n_mism}", flush=True,
-    )
-    check(sil_err <= 1e-5, f"K1 silhouette error {sil_err} > 1e-5")
-    check(mass_err <= 1e-4, f"K1 mass relative error {mass_err} > 1e-4")
-    check(z_err <= 1e-5, f"K1 zbuf error {z_err} > 1e-5")
-    check(n_mism == 0, f"K1 pix_to_face differs at {n_mism} pixels")
-    k1_ms = cuda_ms(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2))
-    k1_host = host_us(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2))
-    k1_plain_ms = cuda_ms(lambda: RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2), reps=3)
-
-    # K2 against its plain version, on a fixed random cotangent.
+    # K1 and K2 against their plain versions, K2 on a fixed random cotangent.
     gen = torch.Generator(device="cpu").manual_seed(1)
     g = torch.randn((b, t_rows, TILE * TILE), generator=gen).to(dev)
-    dxy = kernels.sil_bwd(rows, counts, g, *args)
-    dxy_p = RFU.tile_mass_grad_plain(rows, counts, g, *args)
-    torch.cuda.synchronize()
-    scale = float(dxy_p.abs().max())
-    k2_err = float((dxy - dxy_p).abs().max())
-    k2_ok = bool(((dxy - dxy_p).abs() <= 1e-5 * scale + 1e-4 * dxy_p.abs()).all())
-    print(f"[kernels] K2 vs plain: d(xy) max abs err {k2_err:.3g} (max |d(xy)| {scale:.3g})", flush=True)
-    check(k2_ok, "K2 d(xy) outside rtol 1e-4, atol 1e-5 x max")
+    errs = check_k1_k2(rows, counts, tw, g, "kernels")
+    sil_err, z_err, k2_err = errs["sil"], errs["zbuf"], errs["dxy"]
+    k1_ms = cuda_ms(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2))
+    k1_host = host_us(lambda: kernels.fused_fwd(rows, counts, *args, 1e-2), dev)
+    k1_plain_ms = cuda_ms(lambda: RFU.tile_mass_depth_plain(rows, counts, *args, 1e-2), reps=3)
     k2_ms = cuda_ms(lambda: kernels.sil_bwd(rows, counts, g, *args))
-    k2_host = host_us(lambda: kernels.sil_bwd(rows, counts, g, *args))
+    k2_host = host_us(lambda: kernels.sil_bwd(rows, counts, g, *args), dev)
     k2_plain_ms = cuda_ms(lambda: RFU.tile_mass_grad_plain(rows, counts, g, *args), reps=3)
 
     # The whole fused raster, kernels on the card vs plain versions on the
@@ -978,11 +995,15 @@ def phase_silhouette_kernels(dev, sc, card: str) -> list[dict]:
 
 def phase_gather_kernels(dev, card: str) -> list[dict]:
     """K6: every form of the gather probe, kernel against plain version
-    (the probe's own checks), and its timed shapes; returns the two rows,
-    each timed at the shape of the TPU kernel it replaces (the timed
-    gather :210, form H :249), their launches those of this probe run.  The
-    probe's lines at the hash backward's shape, where the JAX tool times
-    only XLA, are printed and kept out of the rows."""
+    (the probe's own checks; form H also bit for bit against the CPU), and
+    its four timed shapes, each against its library call in turns: device
+    time (a CUDA graph), enqueue time and wall time.  Returns the two rows,
+    each timed at the shape of the TPU kernel it replaces (the timed gather
+    :210, form H :249): ``ms`` and ``library_ms`` wall time per call, as in
+    every other row, ``device_ms`` and ``library_device_ms`` device time,
+    ``host_us`` and ``library_host_us`` enqueue time, their launches those
+    of this probe run.  The hash backward's shapes, where
+    the JAX tool times only XLA, are printed and kept out of the rows."""
     from dynhor_tpu_torch.tools import probe_gather as PG
 
     reset_launches()
@@ -1001,13 +1022,21 @@ def phase_gather_kernels(dev, card: str) -> list[dict]:
          "form H scatter-add (512, 128) += (256, 128)", "tools/probe_pallas_gather.py:249 form H"),
     ):
         t = timed[key]
-        row = kernel_row(name, "dynhor_tpu_torch/csrc/gather_probe.cu", replaces, err, t["ms"],
-                         t["plain_ms"], 0, t["bytes"], library_ms=t["library_ms"])
+        row = kernel_row(name, "dynhor_tpu_torch/csrc/gather_probe.cu", replaces, err,
+                         t["wall_ms"], t["plain_ms"], 0, t["bytes"],
+                         library_ms=t["library_wall_ms"])
+        row.update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"],
+                   host_us=t["host_us"], library_host_us=t["library_host_us"])
         row["launches"] = launches[name]
         out.append(row)
-        print(f"[k6] {name} at the {shape}: {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
-              f"{t['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms (bytes); launches in the "
-              f"probe {launches[name]} — {card}", flush=True)
+    for key, t in timed.items():
+        print(f"[k6] {key}: device {t['device_ms'] * 1e3:.3f} us against the library's "
+              f"{t['library_device_ms'] * 1e3:.3f} us, enqueue {t['host_us']:.2f} against "
+              f"{t['library_host_us']:.2f} us, wall {t['wall_ms']:.5f} against "
+              f"{t['library_wall_ms']:.5f} ms (in turns); bound {t['bound_ms']:.6f} ms (bytes), "
+              f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of it by device time — {card}", flush=True)
+    print(f"[k6] launches in the probe: take_along_axis {launches['K6 take_along_axis']}, "
+          f"scatter_add_axis0 {launches['K6 scatter_add_axis0']}", flush=True)
     return out
 
 
@@ -2320,6 +2349,190 @@ def phase_vis(dev, card: str, run: dict) -> None:
           f"ms each); overlay mask pixels {hits} — {card}", flush=True)
 
 
+KETTLE = "assets/kettle/kettle.obj"
+# Phase 8's small scene, card against CPU: tests/test_multiseq.py's two
+# boxes pooled, coarse mode on the fused raster (K1/K2 on the card, their
+# plain versions on the CPU), 5 steps; poses within RUN_CARD_TOL.
+MULTI_BOX_STEPS = 5
+
+
+def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
+    """Phase 8: ``python -m dynhor_tpu_torch.run_multi`` (its main, in this
+    process) at full width: phase 6's 12-frame shoes sequence and a 12-frame
+    kettle sequence from the demo-data twin, the ``io/config.py`` defaults,
+    the frames pooled (24 frames, groups of 16, the second padded by 8).
+    Checks both sequences' artifacts, the counted caps and overflow it
+    prints, K1/K2 once per step of each refine group and of each joint, K3
+    once per view chunk of each scoring call; prints the seconds per phase,
+    the peak memory, the caps of each sequence's frames in the pooled batch,
+    and K1/K2's times at the pooled cap."""
+    import yaml
+
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch import run_multi as RM
+    from dynhor_tpu_torch.io.config import DEFAULTS
+    from dynhor_tpu_torch.ops import raster_fused as RFU
+    from dynhor_tpu_torch.ops.rasterize import project_perspective
+    from dynhor_tpu_torch.parallel import multiseq as MS
+    from dynhor_tpu_torch.tools import make_demo_data as MD
+    from dynhor_tpu_torch.tracker import priors as TP
+
+    kettle_dir = os.path.join(tmp, "custom_kettle")
+    _, t_data = wall(lambda: MD.write_sequence(
+        kettle_dir, KETTLE, frames=RUN_FRAMES, height=RUN_HW[0], width=RUN_HW[1], seed=0,
+        device=dev, verbose=False,
+    ))
+    seqs = {"custom_shoes": (run["seq_dir"], SHOES), "custom_kettle": (kettle_dir, KETTLE)}
+    paths = []
+    for name, (root, obj) in seqs.items():
+        path = os.path.join(tmp, f"{name}_multi.yaml")
+        with open(path, "w") as fh:
+            yaml.safe_dump({"seq_name": name, "exp_name": "multi",
+                            "data_info": {"dataroot": root, "obj_path": os.path.abspath(obj)}}, fh)
+        paths.append(path)
+    print(f"[multi] kettle sequence ({RUN_FRAMES} frames at {RUN_HW[0]}x{RUN_HW[1]}) written by "
+          f"the demo-data twin in {t_data:.3f} s; running python -m dynhor_tpu_torch.run_multi "
+          f"(its main) on shoes and kettle", flush=True)
+    stages, pooled = _Stages(TP.prior_scores_batched), _Spy(MS, "refine_poses_multi")
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    TP.prior_scores_batched = stages
+    try:
+        with contextlib.redirect_stdout(tee):
+            res, t_run = wall(lambda: RM.main(["--config_paths", *paths, "--exps_root",
+                                               run["exps"]]))
+    finally:
+        TP.prior_scores_batched = stages.fn
+        pooled.restore()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    text = tee.buf.getvalue()
+
+    sysc = DEFAULTS["system"]
+    n_pool = len(seqs) * RUN_FRAMES
+    groups = -(-n_pool // MS.FRAMES_PER_CARD)
+    for name in seqs:
+        exp = os.path.join(run["exps"], name, "multi")
+        npzs = sorted(os.listdir(os.path.join(exp, "obj_infos")))
+        check(npzs == [f"{i:04d}.npz" for i in range(RUN_FRAMES)], f"{name}: pose files {npzs}")
+        for fname in npzs:
+            d = np.load(os.path.join(exp, "obj_infos", fname))
+            R, T = d["R"], d["T"]
+            check(np.isfinite(R).all() and np.isfinite(T).all(), f"{name} {fname} not finite")
+            check(np.abs(R @ R.T - np.eye(3)).max() <= 1e-4, f"{name} {fname}: R not orthonormal")
+        board = os.listdir(os.path.join(exp, "board"))
+        check(any(n.startswith("events.out.tfevents") for n in board), f"{name} board/ {board}")
+        check(os.path.exists(os.path.join(exp, "config.yaml")), f"{name}: no config.yaml")
+        check(re.search(rf"{name}: joint iou [\d.]+ -> ", text) is not None,
+              f"{name}: no joint line")
+    found = re.search(r"per-tile face cap (\d+), active-tile cap (\w+) \(counted; worst tile "
+                      r"(\d+) faces", text)
+    check(found is not None and int(found.group(1)) == res.cap,
+          f"the printed pooled cap {found and found.groups()} is not the run's {res.cap}")
+    check(res.refine.max_overflow == 0 and "WARNING" not in text,
+          f"the pooled run overflowed (max {res.refine.max_overflow})")
+    check(len(stages.calls) == len(seqs), f"{len(stages.calls)} scoring calls for {len(seqs)}")
+    pc = sysc["prior"]
+    chunks = sum(view_chunks(n, pc["view_chunk"], pc["host_batch"]) for n, _ in stages.calls)
+    check(launches["K3"] == chunks, f"K3 launched {launches['K3']} times for {chunks} view chunks")
+    steps = groups * sysc["init_num_iterations"] + len(seqs) * sysc["joint_num_iterations"]
+    check(launches["K1"] == launches["K2"] == steps,
+          f"K1/K2 launched {launches['K1']}/{launches['K2']} times for {steps} steps")
+    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3") and n}
+    check(not others, f"kernels off this path launched: {others}")
+
+    # The caps of each sequence's frames in the pooled batch, and K1/K2 on
+    # the first group's rows at the pooled cap: held against their plain
+    # versions, then timed.
+    (batch, rot, trans, *_), _, _ = pooled.calls[-1]  # the outer call ends last
+    per_seq = {}
+    for s, name in enumerate(seqs):
+        sel = torch.as_tensor(np.nonzero(batch.seq_id == s)[0])
+        per_seq[name] = MS.pooled_caps(MS._frames(batch, sel), rot[sel.to(dev)],
+                                       trans[sel.to(dev)], CROP, SIGMA)[:3]
+    g = MS.FRAMES_PER_CARD
+    vp = project_perspective(
+        batch.mesh_verts[:g] @ rot[:g] + trans[:g].reshape(-1, 1, 3), batch.targets.K_rois[:g])
+    rows, counts, tw = RFU.kernel_inputs(vp, batch.mesh_faces[:g], (CROP, CROP), SIGMA, TILE,
+                                         res.cap, max_active_tiles=res.act_cap)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    cot = torch.randn((rows.shape[0], rows.shape[1], TILE * TILE), generator=gen).to(dev)
+    errs = check_k1_k2(rows, counts, tw, cot, "multi")
+    k1_ms = cuda_ms(lambda: kernels.fused_fwd(rows, counts, TILE, tw, SIGMA, 1e-2))
+    k2_ms = cuda_ms(lambda: kernels.sil_bwd(rows, counts, cot, TILE, tw, SIGMA))
+    print(
+        f"[multi] python -m dynhor_tpu_torch.run_multi, {len(seqs)} sequences, {n_pool} pooled "
+        f"frames in {groups} groups of {g}: {t_run:.3f} s wall; phase seconds {res.seconds}; "
+        f"scoring calls {[(n, round(t, 3)) for n, t in stages.calls]} (views, s); pooled cap "
+        f"{res.cap} (worst tile {res.worst_load} faces before the 1.5 headroom), active-tile "
+        f"cap {res.act_cap}; caps of each sequence's frames in the pooled batch (cap, "
+        f"active-tile cap, worst tile) {per_seq}; K1/K2 at the pooled cap on the first group's "
+        f"rows {tuple(rows.shape)}: {k1_ms:.4f} / {k2_ms:.4f} ms, against plain zbuf "
+        f"{errs['zbuf']:.3g}, sil {errs['sil']:.3g}, pix_to_face mismatches {errs['p2f']}, "
+        f"d(xy) {errs['dxy']:.3g} (max {errs['dxy_max']:.3g}); launches K1 {launches['K1']}, "
+        f"K2 {launches['K2']} ({steps} steps), K3 {launches['K3']} (view chunks {chunks}); peak "
+        f"{peak / 2**30:.2f} GiB allocated — {card}", flush=True,
+    )
+
+
+def phase_multi_small(dev) -> None:
+    """tests/test_multiseq.py's two boxes pooled (4 frames each, 32²),
+    ``refine_poses_multi`` in coarse mode on the fused raster for
+    MULTI_BOX_STEPS steps, on the card (K1/K2 once per step) and on the
+    CPU (their plain versions): poses within RUN_CARD_TOL."""
+    from dynhor_tpu_torch.ops import rasterize as RZ
+    from dynhor_tpu_torch.parallel import multiseq as MS
+    from dynhor_tpu_torch.tracker import refine as RF
+    from dynhor_tpu_torch.utils import geometry as G
+    from dynhor_tpu_torch.utils.objio import MeshData
+
+    size = 32
+    K = torch.tensor([[size, 0, size / 2], [0, size, size / 2], [0, 0, 1.0]])
+    meshes, targets, rots = [], [], []
+    for s, (scale, extra) in enumerate(((1.0, 0), (0.7, 3))):
+        v = scale * np.array(BOX_V, np.float32)
+        v = np.concatenate([v, np.tile(v[:1], (extra, 1))])
+        m = MeshData(verts=v, faces=np.array(BOX_F, np.int32),
+                     face_uvs=np.full((12, 3, 2), 0.5, np.float32),
+                     texture=np.full((2, 2, 3), 0.6, np.float32), has_texture=False)
+        rot = uniform_rotations(4, 40 + s, "cpu")
+        vp = RZ.project_perspective(torch.as_tensor(v) @ rot + torch.tensor([0.0, 0.0, 2.0]), K)
+        masks = (RZ.rasterize(vp, torch.as_tensor(m.faces), (size, size), face_chunk=12)
+                 .pix_to_face >= 0).float()
+        meshes.append(m)
+        targets.append(RF.FrameTargets(masks, torch.zeros((4, 4, 8)), K.expand(4, 3, 3)))
+        rots.append(rot)
+    c, s_ = np.cos(0.08), np.sin(0.08)
+    nudge = torch.tensor([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]], dtype=torch.float32)
+    rot0 = torch.cat(rots) @ nudge
+    trans0 = torch.tensor([[0.02, -0.01, 2.05]]).expand(8, 3)
+    cfg = RF.RefineConfig(num_iterations=MULTI_BOX_STEPS, crop_size=size, mode="coarse",
+                          face_chunk=12)
+    out = {}
+    for where in (dev, "cpu"):
+        reset_launches()
+        batch = MS.build_batch(meshes, targets, device=where)
+        out[str(where)] = MS.refine_poses_multi(batch, rot0, trans0, None, None, cfg,
+                                                device=where)
+        if where == dev:
+            rl = read_launches()
+            check(rl["K1"] == rl["K2"] == MULTI_BOX_STEPS,
+                  f"the pooled boxes launched K1/K2 {rl['K1']}/{rl['K2']} times in "
+                  f"{MULTI_BOX_STEPS} steps")
+    a, b = out[str(dev)], out["cpu"]
+    err = max(float((a.rot6d.cpu() - b.rot6d).abs().max()),
+              float((a.translations.cpu() - b.translations).abs().max()))
+    moved = float((b.rot6d - G.matrix_to_rot6d(rot0)).abs().max())
+    print(f"[multi-small] two boxes pooled (8 frames, {MULTI_BOX_STEPS} coarse steps on the "
+          f"fused raster): card vs CPU max abs pose difference {err:.3g} (the poses moved "
+          f"{moved:.3g}); overflow {a.max_overflow} / {b.max_overflow}", flush=True)
+    check(a.max_overflow == 0 == b.max_overflow, "the pooled boxes overflowed")
+    check(err <= RUN_CARD_TOL, f"card and CPU pooled poses differ by {err}")
+    check(moved > 1e-3, "the pooled boxes' poses did not move")
+
+
 def phase_remat(dev, sc, card: str, dcfg) -> None:
     """Phase 3's ``dino_remat`` line: the fine refine at full width (8
     frames, STEPS steps, ``dcfg.attn_impl``, bf16) with ``dino_remat``
@@ -2442,6 +2655,8 @@ def main() -> None:
         phase_multihyp(dev, smi, tmp, run)
         phase_vis(dev, smi, run)
         phase_multihyp_small(dev, smi)
+        phase_multi(dev, smi, tmp, run)
+        phase_multi_small(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]

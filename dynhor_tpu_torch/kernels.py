@@ -58,10 +58,10 @@ SOURCES = {
         "dynhor_flash_bwd_dkv_f32": [_P] * 8 + [_I, _I, _I, _F, _STRIDES, _P],
         "dynhor_flash_bwd_dq_f32": [_P] * 7 + [_I, _I, _I, _F, _STRIDES, _P],
     }),
-    # Loads and atomic adds only: nvcc's default.
+    # Loads, adds and shuffles: nvcc's default.
     "gather_probe": (list(_FLAGS), {
-        "dynhor_take_along_axis": [_P, _P, _P, _L, _I, _L, _L, _L, _L, _I, _P],
-        "dynhor_scatter_add_axis0": [_P, _P, _P, _L, _I, _L, _L, _P],
+        "dynhor_take_along_axis": [_P, _P, _P, _I, _I, _L, _L, _L, _L, _I, _I, _P],
+        "dynhor_scatter_add_axis0": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
     }),
 }
 
@@ -596,47 +596,72 @@ flash_bwd_dq.launches = flash_bwd_dq_f32.launches = 0
 # --------------------------------------------------------------------------
 # K6: the probe's gathers and scatter-add (csrc/gather_probe.cu), f32 values
 # and int32 indices.  Indices must lie in range; they are not checked, so
-# that no device sync enters the wrappers.
+# that no device sync enters the wrappers.  The wrappers are the probe's
+# timed calls, so they keep their host work small: the C entry bound once,
+# the stream read raw, the device switched in C only when the tensor is not
+# on the current one, and the kernel form (axis, index form, vector width)
+# chosen in C.
 # --------------------------------------------------------------------------
+
+_I32_MAX = 2**31 - 1
+_F32, _I32 = torch.float32, torch.int32
+# The scatter-add's paths (csrc/gather_probe.cu): "columns" when g has at
+# most SCATTER_COLUMN_N rows and the table at most SCATTER_COLUMN_ROWS rows
+# (a warp per column, its column in shared memory, terms in row order);
+# "atomic" otherwise (one f32 atomicAdd per element).
+SCATTER_COLUMN_N = 2048
+SCATTER_COLUMN_ROWS = 4096
+_k6: dict[str, object] = {}  # the bound C entries
+
+
+def _k6_entry(name: str):
+    fn = _k6.get(name)
+    if fn is None:
+        fn = _k6[name] = getattr(_lib("gather_probe"), name)
+    return fn
 
 
 def _check_index(idx: torch.Tensor, device: torch.device) -> tuple[int, int]:
-    """An (N, L) int32 CUDA view with non-negative strides (0 allowed: an
-    expanded index); returns (N, L)."""
-    if not idx.is_cuda or idx.device != device:
-        raise ValueError(f"idx must be a CUDA tensor on {device}, got {idx.device}")
-    if idx.dtype != torch.int32:
-        raise ValueError(f"idx must be torch.int32, got {idx.dtype}")
-    if idx.dim() != 2 or min(idx.stride()) < 0:
-        raise ValueError(f"idx must be 2-D with non-negative strides, got {tuple(idx.stride())}")
-    return idx.shape
+    """An (N, L) int32 view on ``device`` (any strides: torch's are never
+    negative; 0 is an expanded index); returns (N, L)."""
+    if idx.dtype is not _I32 or idx.dim() != 2 or idx.device != device:
+        raise ValueError(
+            f"idx must be a 2-D torch.int32 tensor on {device}, got {idx.dtype} "
+            f"{tuple(idx.shape)} on {idx.device}"
+        )
+    n, l = idx.shape
+    if n > _I32_MAX or l > _I32_MAX:
+        raise ValueError(f"idx {tuple(idx.shape)}: each side must be below 2^31")
+    return n, l
 
 
 def take_along_axis(src: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     """K6 gather on the card: see ops/gather.take_along_axis_plain.
-    src (R, C) f32 with any strides; idx (N, L) int32, any non-negative
-    strides.  Returns a contiguous (N, L) f32 tensor."""
-    if axis not in (0, 1):
-        raise ValueError(f"axis must be 0 or 1, got {axis}")
-    if not src.is_cuda or src.dtype != torch.float32 or src.dim() != 2:
+    src (R, C) f32 with any strides; idx (N, L) int32, any strides.
+    Returns a contiguous (N, L) f32 tensor."""
+    if src.dtype is not _F32 or src.dim() != 2 or not src.is_cuda:
         raise ValueError(
             f"src must be a 2-D float32 CUDA tensor, got {src.dtype} "
             f"{tuple(src.shape)} on {src.device}"
         )
-    n, l = _check_index(idx, src.device)
-    if (axis == 0 and l > src.shape[1]) or (axis == 1 and n > src.shape[0]):
+    if axis != 0 and axis != 1:
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    dev = src.device
+    n, l = _check_index(idx, dev)
+    if (l if axis == 0 else n) > src.shape[1 - axis]:
         raise ValueError(
             f"idx {tuple(idx.shape)} does not fit src {tuple(src.shape)} along axis {1 - axis}"
         )
-    out = torch.empty((n, l), dtype=torch.float32, device=src.device)
-    if out.numel() == 0:
+    out = torch.empty((n, l), dtype=_F32, device=dev)
+    if n == 0 or l == 0:
         return out
-    with torch.cuda.device(src.device):
-        err = _lib("gather_probe").dynhor_take_along_axis(
-            src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, l, src.stride(0),
-            src.stride(1), idx.stride(0), idx.stride(1), axis,
-            torch.cuda.current_stream(src.device).cuda_stream,
-        )
+    s0, s1 = src.stride()
+    i0, i1 = idx.stride()
+    d = dev.index
+    err = _k6_entry("dynhor_take_along_axis")(
+        src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, l, s0, s1, i0, i1, axis, d,
+        torch._C._cuda_getCurrentRawStream(d),
+    )
     if err:
         raise RuntimeError(f"take_along_axis kernel launch failed: CUDA error {err}")
     take_along_axis.launches += 1
@@ -646,22 +671,35 @@ def take_along_axis(src: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
 take_along_axis.launches = 0
 
 
+def scatter_plan(n: int, n_rows: int) -> int:
+    """The scatter-add's path for g with n rows into a table of n_rows rows:
+    0 "columns", 1 "atomic"."""
+    return 0 if n <= SCATTER_COLUMN_N and n_rows <= SCATTER_COLUMN_ROWS else 1
+
+
 def scatter_add_axis0(g: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     """K6 scatter-add on the card: see ops/gather.scatter_add_axis0_plain.
-    g (N, L) f32 contiguous; idx (N, L) int32, any non-negative strides.
-    Returns (n_rows, L) f32 with dst[idx[i, l], l] += g[i, l]."""
+    g (N, L) f32 contiguous, N * L < 2^31; idx (N, L) int32, any strides.
+    Returns (n_rows, L) f32 with dst[idx[i, l], l] += g[i, l]: on the
+    "columns" path each entry summed in row order (the CPU plain version's
+    bits), on the "atomic" path in an order that changes from run to run."""
     if not g.is_cuda:
         raise ValueError(f"g must be a CUDA tensor, got device {g.device}")
-    n, l = _check_index(idx, g.device)
-    _check("g", g, torch.float32, (n, l))
-    dst = torch.zeros((n_rows, l), dtype=torch.float32, device=g.device)
-    if g.numel() == 0:
-        return dst
-    with torch.cuda.device(g.device):
-        err = _lib("gather_probe").dynhor_scatter_add_axis0(
-            g.data_ptr(), idx.data_ptr(), dst.data_ptr(), n, l, idx.stride(0),
-            idx.stride(1), torch.cuda.current_stream(g.device).cuda_stream,
-        )
+    dev = g.device
+    n, l = _check_index(idx, dev)
+    _check("g", g, _F32, (n, l))
+    if n * l > _I32_MAX or not 0 <= n_rows * l <= _I32_MAX:
+        raise ValueError(f"g {tuple(g.shape)} and the table ({n_rows}, {l}) must hold < 2^31 values")
+    if n == 0 or n_rows == 0 or l == 0:
+        return torch.zeros((n_rows, l), dtype=_F32, device=dev)
+    path = scatter_plan(n, n_rows)
+    dst = (torch.empty if path == 0 else torch.zeros)((n_rows, l), dtype=_F32, device=dev)
+    i0, i1 = idx.stride()
+    d = dev.index
+    err = _k6_entry("dynhor_scatter_add_axis0")(
+        g.data_ptr(), idx.data_ptr(), dst.data_ptr(), n, l, n_rows, i0, i1, path, d,
+        torch._C._cuda_getCurrentRawStream(d),
+    )
     if err:
         raise RuntimeError(f"scatter_add_axis0 kernel launch failed: CUDA error {err}")
     scatter_add_axis0.launches += 1

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .rasterize import Fragments, barycentrics_from_rows, pixel_centers
+from .rasterize import Fragments, barycentrics_from_rows, face_verts, pixel_centers
 from .rasterize_tiled import _detile, bin_faces, bin_faces_and_inverse
 
 Tensor = torch.Tensor
@@ -401,8 +401,8 @@ class _TileBins(NamedTuple):
 def _face_rows(verts_pix: Tensor, faces: Tensor, znear: float) -> Tensor:
     """Per-FACE records (B, F, 16), built once; each tile slot is then ONE
     row gather.  xy differentiable; vis = any(z > znear) and z hard
-    (reference semantics)."""
-    fv = verts_pix[:, faces.long()]  # (B, F, 3, 3)
+    (reference semantics).  faces (F, 3) or (B, F, 3)."""
+    fv = face_verts(verts_pix, faces)  # (B, F, 3, 3)
     z_ok = (fv[..., 2] > znear).any(-1).to(verts_pix.dtype)
     zero = torch.zeros_like(z_ok)
     return torch.stack(
@@ -516,7 +516,8 @@ def rasterize_silhouette(
 
     Args:
       verts_pix: (B, V, 3) projected (u, v, z).
-      faces: (F, 3).
+      faces: (F, 3), or (B, F, 3) a mesh per frame: the kernels take rows
+        per (frame, tile) either way.
 
     Returns (Fragments, soft_silhouette (B, H, W), overflow (B,) int32); with
     ``return_compact=True`` a fourth element, the CompactTiles raster (None

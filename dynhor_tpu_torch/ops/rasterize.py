@@ -8,7 +8,9 @@ fine step itself uses the tile-binned fused raster (ops/raster_fused.py).
 Convention: pixel (i, j) has center at continuous coords (j+0.5, i+0.5),
 u right, v down, matching ``project_perspective``.  Barycentrics are
 screen-space (PyTorch3D perspective_correct=False).  Every function takes a
-leading frame axis B.
+leading frame axis B, and faces either (F, 3), one mesh shared by every
+frame, or (B, F, 3), a mesh per frame (the pooled multi-sequence batch,
+parallel/multiseq.py, whose padding faces (0, 0, 0) have zero area).
 """
 from __future__ import annotations
 
@@ -52,6 +54,15 @@ def _safe_inv(area: Tensor) -> Tensor:
     return torch.where(degen, 0.0, 1.0 / torch.where(degen, 1.0, area))
 
 
+def face_verts(verts: Tensor, faces: Tensor) -> Tensor:
+    """(B, F, 3, C) corners of every face: verts (B, V, C); faces (F, 3)
+    shared by the B frames, or (B, F, 3) one mesh per frame."""
+    faces = faces.long()
+    if faces.dim() == 2:
+        return verts[:, faces]
+    return verts[torch.arange(verts.shape[0], device=verts.device)[:, None, None], faces]
+
+
 def pixel_centers(h: int, w: int, device) -> tuple[Tensor, Tensor]:
     """Row-major (H*W,) pixel-center coordinates (gx, gy)."""
     gx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5).repeat(h)
@@ -70,7 +81,7 @@ def rasterize(
 
     Args:
       verts_pix: (B, V, 3) projected (u, v, z) from project_perspective.
-      faces: (F, 3) integer vertex ids.
+      faces: (F, 3) or (B, F, 3) integer vertex ids.
       face_chunk: faces per loop step (memory knob).
     """
     b = verts_pix.shape[0]
@@ -79,10 +90,10 @@ def rasterize(
     dev = verts_pix.device
     gx, gy = pixel_centers(h, w, dev)
     faces = faces.long()
-    fv_all = verts_pix[:, faces]  # (B, F, 3, 3)
+    fv_all = face_verts(verts_pix, faces)  # (B, F, 3, 3)
     zbuf = torch.full((b, p), float("inf"), device=dev)
     fid = torch.full((b, p), -1, dtype=torch.int64, device=dev)
-    for s in range(0, faces.shape[0], face_chunk):
+    for s in range(0, faces.shape[-2], face_chunk):
         fv = fv_all[:, s : s + face_chunk, None]  # (B, FC, 1, 3, 3)
         x0, y0, z0 = fv[..., 0, 0], fv[..., 0, 1], fv[..., 0, 2]
         x1, y1, z1 = fv[..., 1, 0], fv[..., 1, 1], fv[..., 1, 2]
@@ -129,13 +140,17 @@ def barycentrics_at(
     reference's fine loss (PyTorch3D blur_radius=0, faces_per_pixel=1).
 
     Args:
-      verts_pix: (B, V, 3); faces: (F, 3); pix_to_face: (B, P), may hold -1;
-      gx, gy: (P,) or (B, P) pixel-center coords.
+      verts_pix: (B, V, 3); faces: (F, 3) or (B, F, 3); pix_to_face:
+      (B, P), may hold -1; gx, gy: (P,) or (B, P) pixel-center coords.
 
     Returns: (B, P, 3) barycentrics (unclamped, normalized).
     """
-    fidx = pix_to_face.long().clamp(0, faces.shape[0] - 1)
-    vid = faces.long()[fidx]  # (B, P, 3)
+    faces = faces.long()
+    fidx = pix_to_face.long().clamp(0, faces.shape[-2] - 1)
+    if faces.dim() == 2:
+        vid = faces[fidx]  # (B, P, 3)
+    else:
+        vid = torch.gather(faces, 1, fidx[..., None].expand(-1, -1, 3))
     b = verts_pix.shape[0]
     fv = torch.gather(
         verts_pix[..., :2], 1, vid.reshape(b, -1, 1).expand(-1, -1, 2)
@@ -164,15 +179,30 @@ def barycentrics_from_rows(
 
 def compute_vertex_normals(verts: Tensor, faces: Tensor) -> Tensor:
     """Area-weighted unit vertex normals (PyTorch3D verts_normals
-    semantics); verts (B, V, 3), faces (F, 3) -> (B, V, 3)."""
+    semantics); verts (B, V, 3), faces (F, 3) or (B, F, 3) -> (B, V, 3).
+
+    A mesh per frame adds into the (B * V) flattened vertices through ids
+    offset by b * V, one ``index_add`` per corner as for a shared mesh, so
+    each vertex sums its faces' terms in the same order in both forms."""
     faces = faces.long()
-    v0 = verts[:, faces[:, 0]]
-    v1 = verts[:, faces[:, 1]]
-    v2 = verts[:, faces[:, 2]]
-    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)  # magnitude = 2*area
-    vn = torch.zeros_like(verts)
-    for k in range(3):
-        vn = vn.index_add(1, faces[:, k], fn)
+    if faces.dim() == 2:
+        v0 = verts[:, faces[:, 0]]
+        v1 = verts[:, faces[:, 1]]
+        v2 = verts[:, faces[:, 2]]
+        fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)  # magnitude = 2*area
+        vn = torch.zeros_like(verts)
+        for k in range(3):
+            vn = vn.index_add(1, faces[:, k], fn)
+    else:
+        b, v = verts.shape[:2]
+        fv = face_verts(verts, faces)  # (B, F, 3, 3)
+        fn = torch.linalg.cross(fv[:, :, 1] - fv[:, :, 0], fv[:, :, 2] - fv[:, :, 0], dim=-1)
+        ids = faces + (torch.arange(b, device=verts.device) * v)[:, None, None]
+        fn_flat = fn.reshape(-1, 3)
+        vn = verts.new_zeros((b * v, 3))
+        for k in range(3):
+            vn = vn.index_add(0, ids[..., k].reshape(-1), fn_flat)
+        vn = vn.reshape(b, v, 3)
     # Double-where normalization: vertices whose incident faces are all
     # degenerate get normal 0 with a clean zero gradient.
     n2 = (vn * vn).sum(-1, keepdim=True)

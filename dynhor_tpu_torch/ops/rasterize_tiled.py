@@ -16,6 +16,8 @@ temporaries, about 0.74 GB each at 8 frames, 64 tiles and cap 1408.
 The JAX package evaluates two lookups as one-hot reductions over the tile
 axis because element gathers were slow on its TPU; here they are plain
 ``torch.gather`` calls with the same values.  Nothing here syncs the host.
+Faces are (F, 3), shared by the frames, or (B, F, 3), a mesh per frame
+(ops/rasterize.face_verts).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .rasterize import Fragments, barycentrics_at, pixel_centers
+from .rasterize import Fragments, barycentrics_at, face_verts, pixel_centers
 from .silhouette import face_pixel_bary, softplus_mass
 
 Tensor = torch.Tensor
@@ -41,9 +43,10 @@ def face_screen_bboxes(verts_pix: Tensor, faces: Tensor, znear: float = 1e-2):
 
     Faces with ALL vertices behind znear are excluded; exact point-faces
     (all three vertices identical) can never cover a pixel and are excluded
-    too, so they take no cap slots.
+    too, so they take no cap slots.  A padding face (0, 0, 0) of the
+    pooled batch is such a point face.
     """
-    fv = verts_pix[:, faces.long()]  # (B, F, 3, 3)
+    fv = face_verts(verts_pix, faces)  # (B, F, 3, 3)
     xy = fv[..., :2]
     lo = xy.amin(dim=2)
     hi = xy.amax(dim=2)
@@ -151,7 +154,7 @@ def bin_faces_and_inverse(
 def _inverse(overlap, verts_pix, faces, image_size, tile, max_faces, margin, k_max):
     h, w = image_size
     th, tw = _grid(image_size, tile)
-    max_faces = min(max_faces, faces.shape[0])
+    max_faces = min(max_faces, faces.shape[-2])
     slots = torch.cumsum(overlap, dim=-1) - 1  # (B, T, F)
     x1, y1, x2, y2, vis = _expanded_boxes(verts_pix, faces, margin)
 
@@ -256,14 +259,14 @@ def soft_silhouette_tiled(
 
     Args:
       verts_pix: (B, V, 3) projected (u, v, z); gradients flow to these.
-      faces: (F, 3).
+      faces: (F, 3) or (B, F, 3).
 
     Returns: (B, H, W) coverage in [0, 1].
     """
     h, w = image_size
     bins = bin_faces(verts_pix, faces, image_size, tile, max_faces, margin=6.0 * sigma + 1.0)
     px, py, ox, oy, th, tw = _tile_grid(h, w, tile, verts_pix.device)
-    fv_all = verts_pix[:, faces.long()]  # (B, F, 3, 3)
+    fv_all = face_verts(verts_pix, faces)  # (B, F, 3, 3)
     chunks = []
     for c in range(0, th * tw, tile_chunk):
         fv = _chunk_faces(fv_all, bins.indices[:, c : c + tile_chunk])
@@ -305,7 +308,7 @@ def rasterize_tiled(
     px, py, ox, oy, th, tw = _tile_grid(h, w, tile, verts_pix.device)
     fids = []
     with torch.no_grad():
-        fv_all = verts_pix[:, faces.long()]
+        fv_all = face_verts(verts_pix, faces)
         for c in range(0, th * tw, tile_chunk):
             idx = bins.indices[:, c : c + tile_chunk]
             gx = (ox[c : c + tile_chunk, None] + px[None, :])[..., None]  # (C, P, 1)
@@ -320,7 +323,7 @@ def rasterize_tiled(
     gx, gy = pixel_centers(h, w, verts_pix.device)
     flat = pix_to_face.reshape(b, -1)
     bary = barycentrics_at(verts_pix, faces, flat, gx, gy)  # (B, P, 3)
-    fz = verts_pix[..., 2][:, faces.long()]  # (B, F, 3)
+    fz = face_verts(verts_pix[..., 2:], faces)[..., 0]  # (B, F, 3)
     zf = torch.gather(fz, 1, flat.long().clamp_min(0)[..., None].expand(-1, -1, 3))
     z = bary[..., 0] * zf[..., 0] + bary[..., 1] * zf[..., 1] + bary[..., 2] * zf[..., 2]
     hit = flat >= 0

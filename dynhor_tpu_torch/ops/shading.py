@@ -4,7 +4,11 @@ over frames).
 Port of ``dynhor_tpu/ops/shading.py``.  Replaces PyTorch3D's
 SoftPhongShader + TexturesUV (reference: pose_initializtion.py:417-419):
 ``texel * (ambient + diffuse * relu(n.l)) + specular * relu(r.v)^shininess``
-with one point light.
+with one point light.  Faces, face UVs and textures are either one mesh's,
+shared by the B frames ((F, 3), (F, 3, 2), (Ht, Wt, 3)), or a mesh per
+frame ((B, F, 3), (B, F, 3, 2), and (B, Ht, Wt, 3) or a ``TextureSet``:
+the pooled multi-sequence batch, whose frames of one sequence share one
+copy of its texture).
 """
 from __future__ import annotations
 
@@ -12,9 +16,18 @@ from typing import NamedTuple
 
 import torch
 
-from .rasterize import Fragments
+from .rasterize import Fragments, face_verts
 
 Tensor = torch.Tensor
+
+
+class TextureSet(NamedTuple):
+    """The textures of a batch with a mesh per frame, one copy each: frame
+    b samples ``textures[index[b]]`` (so the frames of one sequence share a
+    texture, where the JAX package holds a copy per frame)."""
+
+    textures: Tensor  # (S, Ht, Wt, 3)
+    index: Tensor  # (B,) int64
 
 
 class Lights(NamedTuple):
@@ -60,9 +73,15 @@ def fine_lights(device, dtype=torch.float32) -> Lights:
 
 def sample_texture(texture: Tensor, uv: Tensor) -> Tensor:
     """Bilinear UV texture sampling (TexturesUV semantics: v up,
-    align_corners).  texture (Ht, Wt, 3); uv (..., 2) in [0, 1], v=0 the
-    BOTTOM of the image.  Returns (..., 3)."""
-    ht, wt = texture.shape[0], texture.shape[1]
+    align_corners).  texture (Ht, Wt, 3); or (B, Ht, Wt, 3), one a frame,
+    or a TextureSet, with uv (B, ..., 2); uv in [0, 1], v=0 the BOTTOM of
+    the image.  Returns (..., 3)."""
+    frame_tex = None
+    if isinstance(texture, TextureSet):
+        texture, frame_tex = texture
+    elif texture.dim() == 4:
+        frame_tex = torch.arange(texture.shape[0], device=uv.device)
+    ht, wt = texture.shape[-3], texture.shape[-2]
     u = uv[..., 0].clamp(0.0, 1.0) * (wt - 1)
     v = (1.0 - uv[..., 1].clamp(0.0, 1.0)) * (ht - 1)
     x0 = torch.floor(u).long()
@@ -71,10 +90,13 @@ def sample_texture(texture: Tensor, uv: Tensor) -> Tensor:
     y1 = (y0 + 1).clamp_max(ht - 1)
     fx = (u - x0)[..., None]
     fy = (v - y0)[..., None]
-    t00 = texture[y0, x0]
-    t01 = texture[y0, x1]
-    t10 = texture[y1, x0]
-    t11 = texture[y1, x1]
+    if frame_tex is not None:
+        bi = frame_tex.reshape((-1,) + (1,) * (uv.dim() - 2))
+        t00, t01 = texture[bi, y0, x0], texture[bi, y0, x1]
+        t10, t11 = texture[bi, y1, x0], texture[bi, y1, x1]
+    else:
+        t00, t01 = texture[y0, x0], texture[y0, x1]
+        t10, t11 = texture[y1, x0], texture[y1, x1]
     return (
         t00 * (1 - fx) * (1 - fy)
         + t01 * fx * (1 - fy)
@@ -89,13 +111,13 @@ def pack_shading_rows(
     """All per-face shading attributes in ONE (B, F, 24) record, so each
     pixel does a single row gather instead of chained faces -> attr ones."""
     b = verts_cam.shape[0]
-    f = faces.shape[0]
-    faces = faces.long()
+    f = faces.shape[-2]
+    uvs = face_uvs.reshape(-1, f, 6)
     return torch.cat(
         [
-            verts_cam[:, faces].reshape(b, f, 9),
-            vert_normals_cam[:, faces].reshape(b, f, 9),
-            face_uvs.reshape(1, f, 6).expand(b, -1, -1),
+            face_verts(verts_cam, faces).reshape(b, f, 9),
+            face_verts(vert_normals_cam, faces).reshape(b, f, 9),
+            uvs.expand(b, -1, -1) if uvs.shape[0] == 1 else uvs,
         ],
         dim=-1,
     )
@@ -158,9 +180,10 @@ def phong_shade(
     """Shade hit pixels; returns (B, H, W, 4) RGBA (alpha = hit mask).
 
     Args:
-      fragments: (B, H, W) maps; faces (F, 3); verts_cam, vert_normals_cam
-      (B, V, 3) camera space (differentiable); face_uvs (F, 3, 2);
-      texture (Ht, Wt, 3).
+      fragments: (B, H, W) maps; faces (F, 3) or (B, F, 3); verts_cam,
+      vert_normals_cam (B, V, 3) camera space (differentiable); face_uvs
+      (F, 3, 2) or (B, F, 3, 2); texture (Ht, Wt, 3), (B, Ht, Wt, 3) or a
+      TextureSet.
     """
     b, h, w = fragments.pix_to_face.shape
     packed = pack_shading_rows(faces, verts_cam, vert_normals_cam, face_uvs)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .rasterize import pixel_centers, rasterize
+from .rasterize import face_verts, pixel_centers, rasterize
 
 Tensor = torch.Tensor
 
@@ -88,7 +88,7 @@ def soft_silhouette(
     Args:
       verts_pix: (B, V, 3) projected (u_pix, v_pix, z_cam); gradients flow
         to these.
-      faces: (F, 3).
+      faces: (F, 3), or (B, F, 3) a mesh per frame.
       sigma: edge softness; the logit is signed_distance / sigma.
       face_chunk: faces per loop step (memory knob).
       znear: faces entirely behind this depth are dropped.
@@ -99,10 +99,10 @@ def soft_silhouette(
     h, w = image_size
     gx, gy = pixel_centers(h, w, verts_pix.device)
     px, py = gx[:, None], gy[:, None]  # (P, 1)
-    fv_all = verts_pix[:, faces.long()]  # (B, F, 3, 3)
+    fv_all = face_verts(verts_pix, faces)  # (B, F, 3, 3)
     valid = torch.ones(fv_all.shape[:2], dtype=torch.bool, device=verts_pix.device)
     acc = verts_pix.new_zeros((b, h * w))
-    for s in range(0, faces.shape[0], face_chunk):
+    for s in range(0, faces.shape[-2], face_chunk):
         acc = acc + checkpoint(
             softplus_mass, fv_all[:, s : s + face_chunk], valid[:, s : s + face_chunk],
             px, py, sigma, znear, use_reentrant=False,

@@ -3,19 +3,24 @@
     python -m dynhor_tpu_torch.tools.probe_gather
 
 The JAX tool asks which gather forms Mosaic lowers on the TPU; on the card
-every form is a launch of one of two hand-written kernels (K6,
-csrc/gather_probe.cu): ``take_along_axis`` for the gathers A-G and
+every form is a launch of the hand-written kernels of K6
+(csrc/gather_probe.cu): ``take_along_axis`` for the gathers A-G and
 ``scatter_add_axis0`` for the scatter-add H.  Each form runs at the JAX
 tool's shapes on data made from a numpy seed and is held against its plain
 version: gathers exactly, the scatter-add within rtol 1e-5 and atol 1e-5
-(f32 atomic sums in another order).  It prints ``[OK]`` or ``[FAIL]`` per
-form as the JAX tool does, then the timed shapes, each beside its plain
-version, the PyTorch library call and its byte bound: the per-lane gather
-(2048 x 128 from 8192 x 128, the JAX tool's timed Pallas kernel), form H's
-scatter-add ((512, 128) += (256, 128)), and the row gather and scatter-add
-at the hash backward's shape (262,144 rows of width 2 against an (8192, 2)
-table), where the JAX tool times only XLA baselines.  A form that fails
-makes the run fail; nothing is caught.
+(the plain version on the card sums with atomics, in an order that changes
+from run to run); on the card form H is also held against the CPU's plain
+version bit for bit (its "columns" path sums each entry in row order, as
+the CPU does).  It prints ``[OK]`` or ``[FAIL]`` per form as the JAX tool
+does, then the timed shapes: the per-lane gather (2048 x 128 from 8192 x
+128, the JAX tool's timed Pallas kernel), form H's scatter-add ((512, 128)
++= (256, 128)), and the row gather and scatter-add at the hash backward's
+shape (262,144 rows of width 2 against an (8192, 2) table), where the JAX
+tool times only XLA baselines.  Each is timed against its PyTorch library
+call in turns (``tools/_timing.split_in_turns``): device time by a CUDA
+graph, host time to enqueue, wall time per call; beside them the plain
+version's wall time and the byte bound.  A form that fails makes the run
+fail; nothing is caught.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from .. import kernels
 from ..ops import gather as OG
 from ..ops.gather import scatter_add_axis0, take_along_axis
 from ..utils.device import resolve_device
-from ._timing import timeit
+from ._timing import split_in_turns, timeit
 
 T, F, N = 8192, 8, 1024  # the JAX tool's table rows, row width, indices
 HASH_ROWS = 2048 * 128  # lookups of the timed forms
@@ -117,8 +122,9 @@ def _timed_inputs(device):
 def run(device, reps: int = 20, out=print) -> dict:
     """Run every form and the timed shapes on ``device``.  Returns
     {"forms": {key: ok}, "max_abs_err": {"take": x, "scatter": x},
-    "timed": {row: {"ms", "plain_ms", "library_ms", "bound_ms", "bytes"}}};
-    the caller fails the run on any form that is not ok."""
+    "timed": {row: {"device_ms", "host_us", "wall_ms", "library_device_ms",
+    "library_host_us", "library_wall_ms", "plain_ms", "bound_ms",
+    "bytes"}}}; the caller fails the run on any form that is not ok."""
     device = torch.device(device)
     forms, errs = {}, {"take": 0.0, "scatter": 0.0}
     all_forms = make_forms(device)
@@ -135,6 +141,9 @@ def run(device, reps: int = 20, out=print) -> dict:
     tab, idx, flat, g = _timed_inputs(device)
     flat2 = flat[:, None].expand(-1, 2)
     h_g, h_idx, h_rows = next(f["args"] for f in all_forms if f["key"] == "H")
+    if device.type == "cuda":
+        h_cpu = OG.scatter_add_axis0_plain(h_g.cpu(), h_idx.cpu(), h_rows)
+        forms["H exact vs the CPU"] = torch.equal(scatter_add_axis0(h_g, h_idx, h_rows).cpu(), h_cpu)
     e = take_along_axis(tab, idx, 0)
     forms["E timed"] = torch.equal(e, torch.gather(tab, 0, idx.long()))
     rg = take_along_axis(tab[:, :2], flat2, 0)
@@ -144,45 +153,57 @@ def run(device, reps: int = 20, out=print) -> dict:
     forms["scatter timed"] = torch.allclose(sc, sc_lib, rtol=1e-5, atol=1e-5)
     errs["scatter"] = max(errs["scatter"], float((sc - sc_lib).abs().max()))
     n = HASH_ROWS
+    # The library calls get their indices in int64 already, so each is
+    # timed as the one launch (two with the zeroed table) it takes.
+    idx64, flat64, h_idx64 = idx.long(), flat.long(), h_idx.long()
     timed = {
         # per-lane gather: indices, the gathered values once, the output once
         "E per-lane gather 2048x128 of 8192x128": dict(
             fn=lambda: take_along_axis(tab, idx, 0),
             plain=lambda: OG.take_along_axis_plain(tab, idx, 0),
-            library=lambda: torch.gather(tab, 0, idx.long()), nbytes=n * 4 * 3),
+            library=lambda: torch.gather(tab, 0, idx64), nbytes=n * 4 * 3),
         "row gather (262k rows of (T,2))": dict(
             fn=lambda: take_along_axis(tab[:, :2], flat2, 0),
             plain=lambda: OG.take_along_axis_plain(tab[:, :2], flat2, 0),
-            library=lambda: tab[:, :2].index_select(0, flat.long()), nbytes=n * 4 + 2 * n * 2 * 4),
+            library=lambda: tab[:, :2].index_select(0, flat64), nbytes=n * 4 + 2 * n * 2 * 4),
         # scatter-add: indices, g, the table written once
         "H scatter-add (512,128) += (256,128)": dict(
             fn=lambda: scatter_add_axis0(h_g, h_idx, h_rows),
             plain=lambda: OG.scatter_add_axis0_plain(h_g, h_idx, h_rows),
-            library=lambda: torch.zeros((h_rows, 128), device=device).scatter_add_(0, h_idx.long(), h_g),
+            library=lambda: torch.zeros((h_rows, 128), device=device).scatter_add_(0, h_idx64, h_g),
             nbytes=h_idx.numel() * 8 + h_rows * 128 * 4, lookups=h_idx.numel()),
         "scatter-add (262k rows into (T,2))": dict(
             fn=lambda: scatter_add_axis0(g, flat2, T),
             plain=lambda: OG.scatter_add_axis0_plain(g, flat2, T),
-            library=lambda: torch.zeros((T, 2), device=device).index_add_(0, flat.long(), g),
+            library=lambda: torch.zeros((T, 2), device=device).index_add_(0, flat64, g),
             nbytes=n * 4 + n * 2 * 4 + T * 2 * 4),
     }
     rows = {}
     for name, t in timed.items():
-        ms = timeit(t["fn"], device, reps, warmup=1)
+        turns = split_in_turns(t["fn"], t["library"], device, rounds=2, n=reps)
+        k, lib = turns["kernel"], turns["library"]
+        bound_ms = t["nbytes"] / PEAK_BYTES * 1e3
         rows[name] = dict(
-            ms=ms, plain_ms=timeit(t["plain"], device, reps, warmup=1),
-            library_ms=timeit(t["library"], device, reps, warmup=1),
-            bound_ms=t["nbytes"] / PEAK_BYTES * 1e3, bytes=t["nbytes"],
+            device_ms=k["device_us"] / 1e3, host_us=k["host_us"], wall_ms=k["wall_ms"],
+            library_device_ms=lib["device_us"] / 1e3, library_host_us=lib["host_us"],
+            library_wall_ms=lib["wall_ms"], plain_ms=timeit(t["plain"], device, reps, warmup=1),
+            bound_ms=bound_ms, bytes=t["nbytes"],
         )
         r = rows[name]
         lookups = t.get("lookups", n)
         out(
-            f"[TIME] {name}: kernel {ms:.4f} ms/call -> {lookups / ms / 1e3:.0f}M lookups/s; plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
-            f"ms ({r['bytes']} bytes at {PEAK_BYTES:.3g} B/s)"
+            f"[TIME] {name}, kernel vs library in turns (medians of 4): device "
+            f"{k['device_us']:.3f} vs {lib['device_us']:.3f} us/call, enqueue {k['host_us']:.2f} "
+            f"vs {lib['host_us']:.2f} us, wall {k['wall_ms']:.5f} vs {lib['wall_ms']:.5f} ms/call; "
+            f"{lookups / k['device_us']:.0f}M lookups/s by device time, "
+            f"{bound_ms / r['device_ms'] * 100:.2f} % of the byte bound {bound_ms:.6f} ms "
+            f"({t['nbytes']} bytes at {PEAK_BYTES:.3g} B/s); plain {r['plain_ms']:.5f} ms wall"
         )
     for key in ("E timed", "row gather", "scatter timed"):
         out(f"[{'OK' if forms[key] else 'FAIL'}]   {key} at the timed shape")
+    if "H exact vs the CPU" in forms:
+        out(f"[{'OK' if forms['H exact vs the CPU'] else 'FAIL'}]   H equals the CPU's plain "
+            "version bit for bit")
     return {"forms": forms, "max_abs_err": errs, "timed": rows}
 
 

@@ -36,7 +36,7 @@ from ..ops import rasterize as rz
 from ..ops.raster_fused import rasterize_silhouette
 from ..ops.rasterize_tiled import rasterize_tiled, soft_silhouette_tiled
 from ..ops.resize import resize_nearest
-from ..ops.shading import fine_lights, phong_shade, phong_shade_tiles
+from ..ops.shading import TextureSet, fine_lights, phong_shade, phong_shade_tiles
 from ..ops.silhouette import soft_silhouette
 from ..utils import camera as cam
 from ..utils import geometry as G
@@ -86,10 +86,14 @@ class RefineConfig:
 
 
 class MeshArrays(NamedTuple):
-    verts: Tensor  # (V, 3) canonical (normalized) vertices
-    faces: Tensor  # (F, 3) int64
-    face_uvs: Tensor  # (F, 3, 2)
-    texture: Tensor  # (Ht, Wt, 3)
+    """One mesh shared by every frame, or (with a leading frame axis B) a
+    mesh per frame: the pooled multi-sequence batch (parallel/multiseq.py),
+    whose texture is then a TextureSet."""
+
+    verts: Tensor  # (V, 3) canonical (normalized) vertices, or (B, V, 3)
+    faces: Tensor  # (F, 3) int64, or (B, F, 3)
+    face_uvs: Tensor  # (F, 3, 2), or (B, F, 3, 2)
+    texture: Tensor | TextureSet  # (Ht, Wt, 3), or a TextureSet of B frames
 
 
 class FrameTargets(NamedTuple):
@@ -291,6 +295,43 @@ def _refine_launch(
     return result, max_ov, state_out
 
 
+def place_inputs(mesh: MeshArrays, targets: FrameTargets, dino_params, cfg: RefineConfig, dev):
+    """The mesh, the targets and the ViT's parameters (cast to
+    ``cfg.dino_dtype``, detached) on ``dev``; tensors or arrays in."""
+
+    def put(x, dtype):
+        return torch.as_tensor(x, device=dev, dtype=dtype)
+
+    tex = mesh.texture
+    if isinstance(tex, TextureSet):
+        tex = TextureSet(put(tex.textures, torch.float32), put(tex.index, torch.int64))
+    else:
+        tex = put(tex, torch.float32)
+    mesh = MeshArrays(
+        put(mesh.verts, torch.float32), put(mesh.faces, torch.int64),
+        put(mesh.face_uvs, torch.float32), tex,
+    )
+    targets = FrameTargets(*(put(x, torch.float32) for x in targets))
+    if dino_params is not None:
+        dtype = torch.bfloat16 if cfg.dino_dtype == "bfloat16" else torch.float32
+        dino_params = dino_mod.map_params(
+            dino_params, lambda a: a.detach().to(device=dev, dtype=dtype)
+        )
+    return mesh, targets, dino_params
+
+
+def warn_overflow(max_overflow: int, what: str = "refinement") -> None:
+    """The warning of a refine whose rasters dropped faces or tiles."""
+    if max_overflow > 0:
+        print(
+            f"WARNING: tile-bin overflow DURING {what} (max {max_overflow}"
+            " face-tile pairs or active tiles dropped in a step) — count both"
+            " caps at the init poses (ops/rasterize_tiled.max_tile_load,"
+            " max_active_tiles_load) with headroom",
+            flush=True,
+        )
+
+
 def refine_poses(
     mesh: MeshArrays,
     targets: FrameTargets,
@@ -327,33 +368,14 @@ def refine_poses(
     """
     del iters_per_launch
     dev = resolve_device(device)
-
-    def put(x, dtype=None):
-        return torch.as_tensor(x, device=dev, dtype=dtype)
-
-    mesh = MeshArrays(
-        put(mesh.verts, torch.float32), put(mesh.faces, torch.int64),
-        put(mesh.face_uvs, torch.float32), put(mesh.texture, torch.float32),
-    )
-    targets = FrameTargets(*(put(x, torch.float32) for x in targets))
-    if dino_params is not None:
-        dtype = torch.bfloat16 if cfg.dino_dtype == "bfloat16" else torch.float32
-        dino_params = dino_mod.map_params(
-            dino_params, lambda a: a.detach().to(device=dev, dtype=dtype)
-        )
+    mesh, targets, dino_params = place_inputs(mesh, targets, dino_params, cfg, dev)
     result, max_ov, state = _refine_launch(
-        mesh, targets, put(rot_init_row, torch.float32),
-        put(trans_init, torch.float32), dino_params, dino_cfg, cfg, carry_state,
+        mesh, targets, torch.as_tensor(rot_init_row, dtype=torch.float32, device=dev),
+        torch.as_tensor(trans_init, dtype=torch.float32, device=dev), dino_params, dino_cfg,
+        cfg, carry_state,
     )
     max_overflow = int(max_ov)
-    if max_overflow > 0:
-        print(
-            f"WARNING: tile-bin overflow DURING refinement (max {max_overflow}"
-            " face-tile pairs or active tiles dropped in a step) — count both"
-            " caps at the init poses (ops/rasterize_tiled.max_tile_load,"
-            " max_active_tiles_load) with headroom",
-            flush=True,
-        )
+    warn_overflow(max_overflow)
     result = result._replace(max_overflow=max_overflow)
     if return_state:
         return result, state

@@ -26,7 +26,7 @@ assert len(names) >= 15, names
 run_slice = {"dynhor_tpu_torch." + m for m in (
     "run", "tracker.pipeline", "tracker.outliers", "io.config", "io.artifacts", "io.ingest",
     "neus.data", "utils.profiling", "utils.constants", "tools.make_demo_data", "vis",
-    "visualizer")}
+    "visualizer", "run_multi", "parallel.multiseq")}
 assert run_slice <= set(names), sorted(run_slice - set(names))
 print("ok", len(names))
 """
