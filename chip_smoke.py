@@ -133,6 +133,25 @@ Phases; any failure exits non-zero.
    K1/K2's times at the pooled cap.  Then tests/test_multiseq.py's two
    boxes pooled, on the card and on the CPU, poses within 1e-4.
 
+9. The NeuS reconstruction stage, which reaches no kernel of the
+   ``kernels`` line (the JAX package's NeuS has no Pallas kernel): (a)
+   ``python -m dynhor_tpu_torch.recon`` (its ``main``, in this process) at
+   configs/neus_shoes_fast.yaml's recon block (the 8x256 PE field, the
+   occgrid sampler, 1024 rays a step, ``n_shade`` 16, a 192^3 mesh) on phase
+   6's sequence (12 frames, 240x320 after ``downscale: 2``) with its
+   ground-truth poses, ``num_steps`` cut 4000 -> 1000: rays/s over steps
+   501-749 between two synchronizations, the seconds per phase, the peak
+   memory, the final PSNR and loss, the mesh from the native marching
+   library and its Chamfer distance to the shoes mesh (under 0.1), a falling
+   loss, no kernel launched; (b) the bench twin (``tools.bench_neus``) for
+   (pe, neus) and (hash, occgrid) at 1024 rays and (pe, occgrid) at 1024
+   and 4096, a profiler window of the (pe, occgrid, 1024) step (device busy
+   time by kernel group, launches, idle share), and the hash encoder alone
+   at 65,536 points; (c) the small
+   field on the card and on the CPU with the same draws: dense, compacted
+   and occgrid renders and three train steps of each sampler, at the CPU
+   tests' tolerances.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
@@ -2533,6 +2552,331 @@ def phase_multi_small(dev) -> None:
     check(moved > 1e-3, "the pooled boxes' poses did not move")
 
 
+NEUS_FAST = "configs/neus_shoes_fast.yaml"
+RECON_STEPS = 1000  # configs/neus_shoes_fast.yaml's 4000, cut to fit the script's time
+RECON_WINDOW = (501, 750)  # timed steps: between the occupancy refreshes at 500 and 750
+RECON_CHAMFER_MAX = 0.1  # sanity: the initial sphere sits well above it against the shoe
+BENCH_NEUS = (("pe", "neus", (1024,)), ("pe", "occgrid", (1024, 4096)),
+              ("hash", "occgrid", (1024,)))
+NEUS_SMALL = dict(pe_freqs=4, hidden=64, depth=4, skip_layer=2, feat_dim=32, color_hidden=64,
+                  color_depth=3)  # tests/test_neus.py's small field
+NEUS_TOL = 1e-4  # the CPU tests' tolerance for renders, logs and parameters
+
+
+class _WindowedStep:
+    """Wraps ``neus.trainer.make_train_step`` (looked up by ``train`` at call
+    time) so that the step function it returns synchronizes the device before
+    step ``RECON_WINDOW[0]`` and after step ``RECON_WINDOW[1] - 1``, and
+    records the seconds between."""
+
+    def __init__(self, module):
+        self.module, self.fn, self.seconds = module, module.make_train_step, None
+        module.make_train_step = self
+
+    def __call__(self, *args, **kw):
+        inner = self.fn(*args, **kw)
+        lo, hi = RECON_WINDOW
+
+        def step(state, *a, **k):
+            if state.step == lo:
+                torch.cuda.synchronize()
+                self.t0 = time.time()
+            logs = inner(state, *a, **k)
+            if state.step == hi:
+                torch.cuda.synchronize()
+                self.seconds = time.time() - self.t0
+            return logs
+
+        return step
+
+    def restore(self) -> None:
+        self.module.make_train_step = self.fn
+
+
+def write_gt_poses(seq_dir: str, out: str) -> int:
+    """The twin's gt_poses.npz as per-frame {R, T, K} npz files, as
+    tools/export_gt_poses.py writes them; returns the frame count."""
+    gt = np.load(os.path.join(seq_dir, "gt_poses.npz"))
+    os.makedirs(out, exist_ok=True)
+    for i in range(gt["R"].shape[0]):
+        np.savez(os.path.join(out, f"{i:04d}.npz"), R=gt["R"][i].astype(np.float32),
+                 T=gt["T"][i].astype(np.float32), K=gt["K"].astype(np.float32))
+    return int(gt["R"].shape[0])
+
+
+def phase_recon(dev, card: str, tmp: str, run: dict) -> dict:
+    """Phase 9a: ``python -m dynhor_tpu_torch.recon`` (its main, in this
+    process) at configs/neus_shoes_fast.yaml's recon block on phase 6's
+    shoes sequence with its ground-truth poses, ``num_steps`` cut to
+    RECON_STEPS.  Prints rays/s over a synchronized window of steps, the
+    seconds per phase, the peak memory, the final PSNR and loss, the mesh and
+    the Chamfer distance to the shoes mesh; checks finite losses, a falling
+    loss, a non-empty mesh from the native library, no kernel launched, and
+    the Chamfer under RECON_CHAMFER_MAX."""
+    import yaml
+
+    from dynhor_tpu_torch import native
+    from dynhor_tpu_torch import recon as REC
+    from dynhor_tpu_torch.neus import trainer as TT
+
+    poses = os.path.join(tmp, "gt_obj_infos")
+    n_frames = write_gt_poses(run["seq_dir"], poses)
+    with open(NEUS_FAST) as fh:
+        fast = yaml.safe_load(fh)
+    rc = dict(fast["system"]["recon"])
+    print(f"[recon] {NEUS_FAST}'s recon block on phase 6's sequence ({n_frames} frames, "
+          f"gt poses written as tools/export_gt_poses.py writes them); num_steps cut "
+          f"{rc['num_steps']} -> {RECON_STEPS}", flush=True)
+    rc.update(num_steps=RECON_STEPS, poses_dir=poses, gt_mesh=os.path.abspath(SHOES))
+    cfg = {"seq_name": "custom_shoes", "exp_name": "recon_smoke",
+           "data_info": {"dataroot": run["seq_dir"], "obj_path": os.path.abspath(SHOES)},
+           "system": {"recon": rc}}
+    cfg_path = os.path.join(tmp, "neus_smoke.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    window, marching = _WindowedStep(TT), _Spy(native, "marching_tetrahedra_native")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        res, t_run = wall(lambda: REC.main(["--config_path", cfg_path, "--exps_root",
+                                            run["exps"], "--no_resume"]))
+    finally:
+        window.restore()
+        marching.restore()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    h = res.history
+    check(all(np.isfinite(v).all() for v in h.values()), "a recon log is not finite")
+    check(h["loss"][-1] < h["loss"][0], f"the recon loss did not fall: {h['loss']}")
+    check(len(res.faces) > 0 and len(res.verts) > 0, "the extracted mesh is empty")
+    check(len(marching.calls) == 1 and len(marching.calls[0][2][1]) == len(res.faces),
+          "the mesh did not come from the native marching library")
+    check(res.chamfer is not None and res.chamfer < RECON_CHAMFER_MAX,
+          f"Chamfer {res.chamfer} to the shoes mesh is not under {RECON_CHAMFER_MAX}")
+    check(not any(launches.values()), f"recon launched kernels of the kernels line: {launches}")
+    steps = RECON_WINDOW[1] - RECON_WINDOW[0]
+    check(window.seconds is not None, "the timed window of steps did not run")
+    rays = steps * int(rc["batch_rays"]) / window.seconds
+    print(
+        f"[recon] python -m dynhor_tpu_torch.recon, {RECON_STEPS} steps of "
+        f"{rc['batch_rays']} rays ({rc['encoder']}, {rc['sampler']}, n_shade "
+        f"{rc.get('n_shade', 16)}): {t_run:.3f} s wall; phase seconds "
+        f"{ {k: round(v, 3) for k, v in res.seconds.items()} }; steps {RECON_WINDOW[0]}-"
+        f"{RECON_WINDOW[1] - 1} synchronized: {1e3 * window.seconds / steps:.3f} ms/step, "
+        f"{rays:.1f} rays/s; peak {peak / 2**30:.2f} GiB allocated; final psnr "
+        f"{h['psnr'][-1]:.3f} dB, loss {h['loss'][0]:.4f} -> {h['loss'][-1]:.4f}; mesh "
+        f"{len(res.verts)} verts / {len(res.faces)} faces at "
+        f"{rc['mesh_resolution']}^3 (native library {native.load_marching()._name}); "
+        f"Chamfer to the shoes mesh {res.chamfer:.5f}; no kernel launched — {card}",
+        flush=True,
+    )
+    return {"rays_s": rays, "seconds": res.seconds, "chamfer": res.chamfer}
+
+
+def phase_recon_bench(dev, card: str) -> None:
+    """Phase 9b: the bench twin (``tools.bench_neus``): rays/s of a whole
+    train step for each (encoder, sampler, batch) of BENCH_NEUS, 3 warm-up
+    and 20 timed steps; then the hash encoder's forward and forward +
+    backward alone at a step's 65,536 points."""
+    from dynhor_tpu_torch.tools import bench_neus as BN
+
+    rows = []
+    for enc, sampler, batches in BENCH_NEUS:
+        for batch, rps in BN.bench_encoder(enc, batches, steps=20, sampler=sampler,
+                                           device=dev).items():
+            rows.append((enc, sampler, batch, rps))
+    ms_step = 1024 / next(r for e, sm, b, r in rows if (e, sm, b) == ("pe", "occgrid", 1024)) * 1e3
+    recon_step_profile(dev, card, ms_step)
+    fwd, fwd_bwd = BN.bench_hash_encoder(65536, device=dev)
+    print(f"[recon-bench] rays/s of a train step (3 warm-up, 20 timed): "
+          f"{[(e, s, b, round(r, 1)) for e, s, b, r in rows]}; hash encoder at 65,536 "
+          f"points (16 levels of 2^19 x 2): forward {fwd:.4f} ms, forward + backward "
+          f"{fwd_bwd:.4f} ms — {card}", flush=True)
+    check(all(np.isfinite(r) and r > 0 for *_, r in rows), "a bench row is not a rate")
+
+
+def recon_step_profile(dev, card: str, ms_step: float, steps: int = 5) -> None:
+    """The device's busy time in a (pe, occgrid, 1024 rays) train step of
+    the bench twin's scene, from a ``torch.profiler`` window of ``steps``
+    steps after 3 warm-up steps: kernels by group, launches per step, and
+    the idle share against the bench's unprofiled ``ms_step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynhor_tpu_torch.neus import trainer as T
+    from dynhor_tpu_torch.neus.draws import Key
+    from dynhor_tpu_torch.neus.fields import SDFConfig
+    from dynhor_tpu_torch.neus.rendering import RenderConfig, occupancy_from_sdf
+    from dynhor_tpu_torch.tools import bench_neus as BN
+
+    rcfg, tcfg = RenderConfig(sampler="occgrid"), T.TrainConfig(batch_rays=1024)
+    data = BN.synthetic_data(device=dev)
+    state = T.init_train_state(Key(0, dev), SDFConfig(), tcfg)
+    step = T.make_train_step(rcfg, tcfg)
+    occ = occupancy_from_sdf(state.field, rcfg)
+    for i in range(3):
+        step(state, Key(1, dev).fold_in(i), data, None, occ)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            step(state, Key(1, dev).fold_in(100 + i), data, None, occ)
+        torch.cuda.synchronize()
+    kernels_ = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels_) / steps / 1e3
+    if busy == 0.0:
+        print("[recon-profile] device busy time: not measured (the profiler saw no kernels)")
+        return
+    groups = {"matmul": 0.0, "gather/scatter": 0.0, "sort/scan": 0.0, "other kernels": 0.0}
+    for e in kernels_:
+        name = e.key.lower()
+        if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
+            key = "matmul"
+        elif any(k in name for k in ("index", "gather", "scatter")):
+            key = "gather/scatter"
+        elif any(k in name for k in ("sort", "scan", "radix", "cumsum", "cumprod", "search")):
+            key = "sort/scan"
+        else:
+            key = "other kernels"
+        groups[key] += e.self_device_time_total / steps / 1e3
+    launches = sum(e.count for e in kernels_) // steps
+    print(f"[recon-profile] (pe, occgrid, 1024 rays) step: device busy {busy:.2f} ms/step "
+          f"(profiler, kernels only; {launches} kernel launches a step): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items())
+          + f"; idle share {max(0.0, 1.0 - busy / ms_step):.3f} of the bench's unprofiled "
+          f"{ms_step:.2f} ms/step — {card}", flush=True)
+    for e in sorted(kernels_, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[recon-profile]   {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+              f"{e.count // steps:5d} launches/step  {e.key[:90]}", flush=True)
+
+
+def _sphere_scene(frames: int = 3, hw: int = 24, radius: float = 0.4):
+    """tests/test_neus.py's ``_sphere_data`` in torch (a white sphere on
+    grey, analytic masks), with unit random normals and 300 random
+    correspondences, on the CPU."""
+    from dynhor_tpu_torch.neus import data as ND
+    from dynhor_tpu_torch.neus import rendering as R
+
+    K = torch.tensor([[hw, 0, hw / 2], [0, hw, hw / 2], [0, 0, 1.0]])
+    ys, xs = torch.meshgrid(torch.arange(hw) + 0.5, torch.arange(hw) + 0.5, indexing="ij")
+    pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+    Rs, imgs, masks = [], [], []
+    for i in range(frames):
+        ang = 2 * np.pi * i / frames
+        c, s = float(np.cos(ang)), float(np.sin(ang))
+        R_row = torch.tensor([[c, 0, -s], [0, 1, 0], [s, 0, c]])
+        rays = R.rays_from_pose(pix, K, R_row, torch.tensor([0.0, 0.0, 1.5]), 1.0)
+        b = (rays.origins * rays.dirs).sum(-1)
+        cc = (rays.origins ** 2).sum(-1) - radius ** 2
+        mask = ((b * b - cc) > 0).float().reshape(hw, hw)
+        imgs.append(torch.where(mask[..., None] > 0, 0.9, 0.2).expand(hw, hw, 3))
+        Rs.append(R_row)
+        masks.append(mask)
+    gen = torch.Generator().manual_seed(0)
+    nrm = torch.randn((frames, hw, hw, 3), generator=gen)
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    data = ND.ReconData(torch.stack(imgs), torch.stack(masks), nrm, torch.stack(Rs),
+                        torch.tensor([[0.0, 0.0, 1.5]]).repeat(frames, 1), K)
+    m = 300
+    corr = ND.CorrData(torch.randint(0, frames, (m,), generator=gen, dtype=torch.int32),
+                       torch.randint(0, frames, (m,), generator=gen, dtype=torch.int32),
+                       4 + 16 * torch.rand((m, 2), generator=gen),
+                       4 + 16 * torch.rand((m, 2), generator=gen))
+    return data, corr
+
+
+def phase_recon_small(dev) -> None:
+    """Phase 9c: the small field (tests/test_neus.py's widths) on the card and
+    on the CPU, the same draws on both sides (each drawn on the CPU from its
+    key and moved): ``render_rays`` dense, compacted and with the occgrid
+    sampler on 32 rays, then three train steps of each sampler with normals
+    and correspondences on, at the CPU tests' tolerances (parameters whose
+    clipped gradient fell under 1e-7 within 2 x lr x steps, counted)."""
+    import math
+
+    from dynhor_tpu_torch.neus import draws as DR
+    from dynhor_tpu_torch.neus import fields as F
+    from dynhor_tpu_torch.neus import rendering as R
+    from dynhor_tpu_torch.neus import trainer as T
+
+    cpu = torch.device("cpu")
+    devs = (dev, cpu)
+    draw = DR.draw
+    DR.draw = lambda key, *a, **k: draw(DR.Key(key.seed, "cpu", key.path), *a, **k).to(key.device)
+    try:
+        cfg = F.SDFConfig(**NEUS_SMALL)
+        fields = {d: F.NeuSField(cfg, DR.Key(0, d)) for d in devs}
+        for f in fields.values():
+            with torch.no_grad():
+                f.variance.fill_(math.log(200.0) / 10.0)
+        gen = torch.Generator().manual_seed(1)
+        px = 10 + 80 * torch.rand((32, 2), generator=gen)
+        K = torch.tensor([[100.0, 0, 50], [0, 100.0, 50], [0, 0, 1]])
+        rays = {d: R.Rays(*(x.to(d) for x in R.rays_from_pose(
+            px, K, torch.eye(3), torch.tensor([0.1, -0.05, 2.0]), 1.0))) for d in devs}
+        errs = {}
+        for name, rcfg in (
+                ("dense", R.RenderConfig(n_coarse=32, n_importance=16, up_sample_steps=2,
+                                         n_shade=0)),
+                ("compacted", R.RenderConfig(n_coarse=32, n_importance=16, up_sample_steps=2,
+                                             n_shade=8)),
+                ("occgrid", R.RenderConfig(sampler="occgrid", occ_res=32, n_candidates=64,
+                                           n_occ_samples=32, n_shade=8))):
+            outs = {}
+            for d in devs:
+                occ = R.occupancy_from_sdf(fields[d], rcfg) if rcfg.sampler == "occgrid" else None
+                outs[d] = R.render_rays(fields[d], rcfg, rays[d], DR.Key(5, d), occ)
+            errs[name] = max(float((a.detach().cpu() - b.detach()).abs().max())
+                             for a, b in zip(outs[dev], outs[cpu]))
+        data, corr = _sphere_scene()
+        data_d = {d: data.to(d) for d in devs}
+        corr_d = {d: corr.to(d) for d in devs}
+        lr = 1e-3
+        tcfg = T.TrainConfig(num_steps=10, batch_rays=32, lr=lr, warmup=2, lw_corr=0.01)
+        step_errs = {}
+        for sampler, rcfg in (
+                ("neus", R.RenderConfig(n_coarse=16, n_importance=8, up_sample_steps=2,
+                                        n_shade=8)),
+                ("occgrid", R.RenderConfig(sampler="occgrid", occ_res=16, n_candidates=32,
+                                           n_occ_samples=16, n_shade=8))):
+            states = {d: T.init_train_state(DR.Key(0, d), cfg, tcfg) for d in devs}
+            step = T.make_train_step(rcfg, tcfg)
+            small, prev, log_err, n_small = {}, {}, 0.0, 0
+            for i in range(3):
+                logs = {}
+                for d in devs:
+                    occ = (R.occupancy_from_sdf(states[d].field, rcfg)
+                           if rcfg.sampler == "occgrid" else None)
+                    logs[d] = step(states[d], DR.Key(0, d).fold_in(i), data_d[d], corr_d[d], occ)
+                for k, v in logs[cpu].items():
+                    e = abs(float(logs[dev][k]) - float(v))
+                    check(e <= NEUS_TOL * abs(float(v)) + 1e-6,
+                          f"recon small {sampler} step {i}: log {k} differs by {e}")
+                    log_err = max(log_err, e / max(abs(float(v)), 1e-6))
+                p_err, n_small = 0.0, 0
+                pc = dict(states[cpu].field.named_parameters())
+                for name, p in states[dev].field.named_parameters():
+                    mu = states[cpu].opt.state[pc[name]]["exp_avg"]
+                    g = (mu - 0.9 * prev.get(name, torch.zeros_like(mu))) / 0.1
+                    lo = small[name] = (g.abs() < 1e-7) | small.get(name, g.abs() < 0)
+                    prev[name] = mu.clone()
+                    diff = (p.detach().cpu() - pc[name].detach()).abs()
+                    n_small += int(lo.sum())
+                    check(bool((diff[~lo] <= 1e-5 + NEUS_TOL * pc[name].detach()[~lo].abs()).all()),
+                          f"recon small {sampler} step {i}: parameter {name} differs")
+                    check(float(diff[lo].max()) <= 2 * lr * (i + 1) if lo.any() else True,
+                          f"recon small {sampler} step {i}: small-gradient {name} moved apart")
+                    if (~lo).any():
+                        p_err = max(p_err, float(diff[~lo].max()))
+            step_errs[sampler] = (log_err, p_err, n_small)
+    finally:
+        DR.draw = draw
+    print(f"[recon-small] card vs CPU, same draws: render max abs difference {errs}; 3 train "
+          f"steps (log relative difference, parameter difference, parameters with a clipped "
+          f"gradient under 1e-7) {step_errs}", flush=True)
+    check(all(e <= NEUS_TOL for e in errs.values()), f"card and CPU renders differ: {errs}")
+
+
 def phase_remat(dev, sc, card: str, dcfg) -> None:
     """Phase 3's ``dino_remat`` line: the fine refine at full width (8
     frames, STEPS steps, ``dcfg.attn_impl``, bf16) with ``dino_remat``
@@ -2657,6 +3001,9 @@ def main() -> None:
         phase_multihyp_small(dev, smi)
         phase_multi(dev, smi, tmp, run)
         phase_multi_small(dev)
+        phase_recon(dev, smi, tmp, run)
+        phase_recon_bench(dev, smi)
+        phase_recon_small(dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]

@@ -26,7 +26,8 @@ assert len(names) >= 15, names
 run_slice = {"dynhor_tpu_torch." + m for m in (
     "run", "tracker.pipeline", "tracker.outliers", "io.config", "io.artifacts", "io.ingest",
     "neus.data", "utils.profiling", "utils.constants", "tools.make_demo_data", "vis",
-    "visualizer", "run_multi", "parallel.multiseq")}
+    "visualizer", "run_multi", "parallel.multiseq", "neus.fields", "neus.rendering",
+    "neus.trainer", "neus.extract", "neus.draws", "native", "recon", "tools.bench_neus")}
 assert run_slice <= set(names), sorted(run_slice - set(names))
 print("ok", len(names))
 """
@@ -95,3 +96,20 @@ def test_prior_entry_points_without_device_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TP.frame_gt_features({}, None, np.zeros((1, 3, 8, 8)), np.zeros((1, 8, 8)))
+
+
+def test_recon_entry_points_without_device_need_a_card(monkeypatch, tmp_path):
+    from dynhor_tpu_torch import recon
+    from dynhor_tpu_torch.neus import data as TDA
+    from dynhor_tpu_torch.neus import trainer as TT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("seq_name: s\ndata_info: {dataroot: none}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recon.main(["--config_path", str(cfg), "--exps_root", str(tmp_path)])
+    data = TDA.ReconData(torch.zeros((1, 4, 4, 3)), torch.zeros((1, 4, 4)), None,
+                         torch.eye(3)[None], torch.zeros((1, 3)), torch.eye(3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.train(data, tcfg=TT.TrainConfig(num_steps=1))
+    assert not any(tmp_path.iterdir()) or [p.name for p in tmp_path.iterdir()] == ["c.yaml"]
