@@ -151,6 +151,24 @@ Phases; any failure exits non-zero.
    field on the card and on the CPU with the same draws: dense, compacted
    and occgrid renders and three train steps of each sampler, at the CPU
    tests' tolerances.
+10. Sharding over ``torch.distributed``: (a) a one-rank NCCL group through
+   ``parallel.multihost.init_distributed``, every collective of
+   ``parallel/mesh.py`` on CUDA tensors against its one-rank values; (b)
+   two ranks sharing the card over gloo (NCCL refuses two ranks on one
+   device), spawned as ``chip_smoke.py --shard-rank R RENDEZVOUS INPUTS
+   OUT``, at full width against the same work in this process: the
+   frame-sharded refine of phase 3's scene (4 + 4 frames, 10 steps), the
+   frame-sharded joint (4 + 4, 200 steps, the smoothness halo),
+   view-sharded two-stage prior scoring of 6,000 views, the ray-sharded
+   NeuS step of neus_shoes_fast (512 + 512 rays, 50 steps; also against
+   this process taking the two ranks' halves in their order), and the two
+   entry points with ``system.devices: 2``: ``python -m
+   dynhor_tpu_torch.run`` on phase 6's sequence and ``python -m
+   dynhor_tpu_torch.run_multi`` on phase 8's two (their mains; views,
+   refine and joint steps cut, the pooled frames sharded), rank 0 alone
+   writing; each rank's K1/K2/K3 launches and wall seconds per case ("two
+   ranks sharing one card", not a scaling figure); a failed rank fails the
+   phase.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -2384,7 +2402,8 @@ def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
     prints, K1/K2 once per step of each refine group and of each joint, K3
     once per view chunk of each scoring call; prints the seconds per phase,
     the peak memory, the caps of each sequence's frames in the pooled batch,
-    and K1/K2's times at the pooled cap."""
+    and K1/K2's times at the pooled cap.  Returns the sequences ({name:
+    (directory, mesh)}) for phase 10."""
     import yaml
 
     from dynhor_tpu_torch import kernels
@@ -2494,6 +2513,7 @@ def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
         f"K2 {launches['K2']} ({steps} steps), K3 {launches['K3']} (view chunks {chunks}); peak "
         f"{peak / 2**30:.2f} GiB allocated — {card}", flush=True,
     )
+    return seqs
 
 
 def phase_multi_small(dev) -> None:
@@ -2943,6 +2963,612 @@ def phase_remat(dev, sc, card: str, dcfg) -> None:
           f"dino_remat changed one step by {across}, more than repeats differ ({within})")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: sharding over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 2  # ranks sharing the one card over gloo
+SHARD_NEUS_STEPS = 50
+SHARD_TIMEOUT = 600  # seconds a rank may take before the phase fails
+SHARD_KEYS = ("K1", "K2", "K3")
+# The entry points under two ranks (phase 10b), cut in depth: the views of
+# each scoring call and the refine and joint steps.  Widths stay: ViT-B/14
+# at 518, 256^2 crops, 12 frames at 480x640 a sequence.
+SHARD_RUN_VIEWS = 1000
+SHARD_MULTI_VIEWS = 300
+SHARD_RUN_JOINT = 20
+# The ranks' 50 NeuS steps against this process taking the two ranks'
+# halves in their order (the same sums in the same order): relative.
+SHARD_WITNESS_TOL = 1e-6
+
+
+def phase_shard_nccl(dev, tmp: str) -> None:
+    """Phase 10a: a one-rank NCCL group through ``init_distributed``; every
+    collective of ``parallel/mesh.py`` on CUDA tensors against the values
+    they must give on one rank (the collectives run: one rank is a live
+    group, not a shortcut)."""
+    import torch.distributed as dist
+
+    from dynhor_tpu_torch.parallel import mesh as PM
+    from dynhor_tpu_torch.parallel import multihost as MH
+
+    MH.init_distributed(f"file://{os.path.join(tmp, 'nccl_rendezvous')}", 1, 0, backend="nccl")
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = PM.make_mesh(axis_name="frames")
+        x = torch.arange(24.0, device=dev).reshape(8, 3).requires_grad_(True)
+        local = PM.shard_leading(x, mesh)
+        got = {
+            "shard": bool(torch.equal(local, x)),
+            "gather": bool(torch.equal(PM.gather_leading(x.detach(), mesh), x.detach())),
+            "gather bool": bool(torch.equal(PM.gather_leading(x.detach() > 5, mesh), x.detach() > 5)),
+            "sum": float(PM.all_reduce(torch.tensor(2.5, device=dev), mesh)) == 2.5,
+            "max": int(PM.all_reduce(torch.tensor(7, device=dev), mesh, op="max")) == 7,
+            "replicate": bool(torch.equal(PM.replicate({"a": x.detach()}, mesh)["a"], x.detach())),
+            "pad": PM.pad_to_multiple(x.detach(), 3)[0].shape == (9, 3),
+        }
+        h = PM.halo_prev(local, mesh)
+        (h.sum() + local.sum()).backward()
+        got["halo"] = bool(torch.equal(h, torch.zeros(3, device=dev)))
+        got["halo grad"] = bool(torch.equal(x.grad, torch.ones_like(x)))
+        check(all(got.values()), f"one-rank NCCL collectives: {got}")
+        print(f"[shard] one-rank NCCL group: shard_leading, gather_leading (f32, bool), "
+              f"all_reduce (sum, max), replicate, pad_to_multiple and halo_prev (forward and "
+              f"gradient) on CUDA tensors as expected: {sorted(got)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _vit(dev):
+    """The random-weight ViT-B/14 of phase 3 (CPU tensors from seed 0), and
+    the digest of its weights."""
+    from dynhor_tpu_torch.models import dino as D
+
+    dcfg = D.DinoConfig()
+    params = D.init_params(dcfg, torch.Generator().manual_seed(0))
+    leaves = []
+    D.map_params(params, leaves.append)
+    return params, dcfg, _digest(leaves)
+
+
+def _shard_refine_cfg(inp):
+    from dynhor_tpu_torch.tracker import refine as RF
+
+    return RF.RefineConfig(num_iterations=STEPS, crop_size=CROP, mode="fine",
+                           max_faces_per_tile=inp["cap"], max_active_tiles=inp["act_cap"])
+
+
+def _shard_joint_cfg(inp):
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+
+    return TJ.JointConfig(
+        num_iterations=JOINT_STEPS, lr=1e-4, lw_sil_obj=1.0, lw_smooth_obj=10.0, crop_size=CROP,
+        sigma=SIGMA, max_faces_per_tile=inp["cap"], max_active_tiles=inp["act_cap"],
+        silhouette_impl="pallas",
+    )
+
+
+def _shard_neus(inp, dev):
+    """neus_shoes_fast's recon block on phase 6's sequence: data, configs."""
+    import yaml
+
+    from dynhor_tpu_torch.neus import data as ND
+    from dynhor_tpu_torch.neus import fields as F
+    from dynhor_tpu_torch.neus import rendering as R
+    from dynhor_tpu_torch.neus import trainer as T
+
+    with open(NEUS_FAST) as fh:
+        rc = yaml.safe_load(fh)["system"]["recon"]
+    data, frame_ids = ND.load_recon_data(inp["seq_dir"], inp["poses"], int(rc["downscale"]))
+    corr = ND.load_correspondences(inp["seq_dir"], frame_ids, int(rc["downscale"]))
+    rcfg = R.RenderConfig(sampler=rc["sampler"])
+    tcfg = T.TrainConfig(
+        num_steps=int(rc["num_steps"]), batch_rays=int(rc["batch_rays"]),
+        lw_rgb=float(rc["lw_rgb"]), lw_mask=float(rc["lw_mask"]),
+        lw_eikonal=float(rc["lw_eikonal"]), lw_normal=float(rc["lw_normal"]),
+        lw_corr=0.0 if corr is None else 0.01,
+    )
+    corr = None if corr is None else corr.to(dev)
+    return data.to(dev), corr, F.SDFConfig(encoder=rc["encoder"]), rcfg, tcfg
+
+
+def _witness_step(rcfg, tcfg):
+    """The ray-sharded train step of SHARD_WORLD ranks, taken in this one
+    process: each rank's loss (``loss_fn`` at a mesh that names that rank,
+    whose collectives are this process's own) is back-propagated in rank
+    order, so every gradient and the logged loss are the ranks' sums as
+    their all-reduce forms them (two addends: the same bits in either
+    order); then the update every rank takes."""
+    from dynhor_tpu_torch.neus import trainer as T
+    from dynhor_tpu_torch.parallel import mesh as PM
+
+    views = [PM.Mesh(("rays",), {"rays": SHARD_WORLD}, tuple(range(SHARD_WORLD)), {"rays": r},
+                     {"rays": PM._SELF}) for r in range(SHARD_WORLD)]
+
+    def step(state, key, data, corr, occ):
+        state.opt.zero_grad(set_to_none=True)
+        state.bg.grad = None
+        loss = 0.0
+        for view in views:
+            part, _ = T.loss_fn(state.field, state.bg, key, data, corr, occ, rcfg, tcfg, view)
+            part.backward()
+            loss = loss + part.detach()
+        T.apply_update(state, tcfg)
+        return {"loss": loss}
+
+    return step
+
+
+def _neus_steps(dev, inp, ray_mesh=None, witness: bool = False):
+    """SHARD_NEUS_STEPS train steps from seed 0 (the occupancy grid
+    refreshed as ``train`` refreshes it): the whole batch in one process,
+    its shard under ``ray_mesh``, or with ``witness`` the ranks' halves in
+    this process (``_witness_step``); (the loss of each step, the digest of
+    the final weights)."""
+    from dynhor_tpu_torch.neus import rendering as R
+    from dynhor_tpu_torch.neus import trainer as T
+    from dynhor_tpu_torch.neus.draws import Key
+
+    data, corr, sdf_cfg, rcfg, tcfg = _shard_neus(inp, dev)
+    key = Key(tcfg.seed, dev)
+    state = T.init_train_state(key, sdf_cfg, tcfg)
+    if witness:
+        step = _witness_step(rcfg, tcfg)
+    else:
+        step = T.make_train_step(rcfg, tcfg, ray_sharding=ray_mesh)
+    losses = []
+    for i in range(SHARD_NEUS_STEPS):
+        if i % tcfg.occ_update_every == 0:
+            occ = R.occupancy_from_sdf(state.field, rcfg)
+        losses.append(step(state, key.fold_in(i), data, corr, occ)["loss"])
+    return [float(v) for v in losses], _digest(state.field.parameters())
+
+
+def shard_worker(argv: list[str]) -> None:
+    """One of SHARD_WORLD ranks sharing the card over gloo (phase 10b):
+    ``chip_smoke.py --shard-rank R RENDEZVOUS INPUTS OUT``.  Runs each case
+    on its shard, times it between barriers and synchronizations, counts its
+    K1, K2 and K3 launches, and saves what it computed to OUT.  The entry
+    points run as a user launches them on SHARD_WORLD cards, in the group
+    this process joined, each rank with an experiment root of its own so
+    that what each wrote can be told apart."""
+    import torch.distributed as dist
+
+    from dynhor_tpu_torch import run as RUN
+    from dynhor_tpu_torch import run_multi as RM
+    from dynhor_tpu_torch.models import dino as D
+    from dynhor_tpu_torch.parallel import mesh as PM
+    from dynhor_tpu_torch.parallel import multihost as MH
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+    from dynhor_tpu_torch.tracker import priors as TP
+    from dynhor_tpu_torch.tracker import refine as RF
+
+    rank, rendezvous, inp_path, out_path = int(argv[0]), argv[1], argv[2], argv[3]
+    MH.init_distributed(rendezvous, SHARD_WORLD, rank, backend="gloo", timeout_s=SHARD_TIMEOUT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    inp = torch.load(inp_path, weights_only=False)
+    out = {"seconds": {}, "launches": {}}
+
+    def timed(name, fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.time() - t0
+        out["launches"][name] = {k: v for k, v in read_launches().items() if k in SHARD_KEYS}
+        return res
+
+    fm = PM.make_mesh(axis_name="frames")
+    params, dcfg, own = _vit(dev)
+    params = PM.replicate(params, fm)  # rank 0's weights on every rank
+    leaves = []
+    D.map_params(params, leaves.append)
+    out["vit_digest"] = (own, _digest(leaves))
+
+    mesh = RF.MeshArrays(*(t.to(dev) for t in inp["mesh"]))
+    targets = RF.FrameTargets(*(t.to(dev) for t in inp["targets"]))
+    cfg = _shard_refine_cfg(inp)
+    shard = lambda t: PM.shard_leading(t.to(dev), fm)  # noqa: E731
+    local_targets = RF.FrameTargets(*(shard(t) for t in inp["targets"]))
+    RF.refine_poses(mesh, local_targets, shard(inp["rot"]), shard(inp["trans"]), params, dcfg,
+                    dataclasses.replace(cfg, num_iterations=1), device=dev,
+                    frame_mesh=fm)  # warm-up
+    res = timed("refine", lambda: RF.refine_poses(
+        mesh, local_targets, shard(inp["rot"]), shard(inp["trans"]), params, dcfg, cfg,
+        device=dev, frame_mesh=fm))
+    out["refine"] = {k: PM.gather_leading(getattr(res, k), fm).cpu()
+                     for k in ("rot6d", "translations", "final_loss")}
+    out["refine"]["overflow"] = res.max_overflow
+
+    jres = timed("joint", lambda: TJ.joint_optimize(
+        mesh.verts, mesh.faces, shard(inp["R0"]), shard(inp["t0"]), shard(targets.K_rois),
+        shard(targets.target_masks), _shard_joint_cfg(inp), device=dev, frame_mesh=fm))
+    out["joint"] = {"rot6d": PM.gather_leading(jres.rot6d, fm).cpu(),
+                    "trans": PM.gather_leading(jres.translations, fm).cpu(),
+                    "history": {k: v.numpy() for k, v in jres.history.items()}}
+
+    vm = PM.make_mesh(axis_name="views")
+    p = inp["priors"]
+    out["priors"] = timed("priors", lambda: TP.prior_scores_two_stage(
+        params, dcfg, *(t.to(dev) for t in p["mesh"]), p["view_rots"].to(dev),
+        p["crops"].to(dev), p["masks"].to(dev), p["gt_feats"].to(dev), p["cos_masks"].to(dev),
+        TP.PriorConfig(num_views=PRIOR_VIEWS), p["window"], host_batch=1000,
+        prescreen_edge=112, prescreen_scale=2, topk=24, device=dev, view_mesh=vm)).cpu()
+
+    rm = PM.make_mesh(axis_name="rays")
+    out["neus"] = timed("neus", lambda: _neus_steps(dev, inp, rm))
+
+    root = inp["exps_ranks"][rank]
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = timed("run", lambda: RUN.main(["--config_path", inp["run_cfg"], "--exps_root",
+                                             root]))
+        out["run"] = {"rot": res.rotations_row, "trans": res.translations,
+                      "selected": res.selected_idx}
+        mres = timed("run_multi", lambda: RM.main(["--config_paths", *inp["multi_cfgs"],
+                                                   "--exps_root", root]))
+    out["run_multi"] = {"pooled": mres.refine.rot6d.cpu(),
+                        "rot": np.concatenate([q["rotations_row"] for q in mres.sequences]),
+                        "trans": np.concatenate([q["translations"] for q in mres.sequences]),
+                        "overflow": mres.refine.max_overflow}
+    torch.save(out, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_shard(dev, card: str, tmp: str, run: dict, seqs: dict) -> None:
+    """Phase 10b: SHARD_WORLD ranks sharing the card over gloo (NCCL refuses
+    two ranks on one device), spawned here, against the same work in this
+    process: the frame-sharded refine of phase 3's scene (8 frames as 4 + 4,
+    STEPS steps), the frame-sharded joint (4 + 4, JOINT_STEPS steps, the
+    smoothness halo across the ranks), view-sharded two-stage prior scoring
+    of PRIOR_VIEWS views (each chunk split between the ranks), the
+    ray-sharded NeuS step of neus_shoes_fast (1024 rays as 512 + 512,
+    SHARD_NEUS_STEPS steps), and the entry points ``run`` on phase 6's
+    sequence and ``run_multi`` on phase 8's two with ``system.devices``
+    SHARD_WORLD (SHARD_RUN_VIEWS and SHARD_MULTI_VIEWS views, STEPS refine
+    and SHARD_RUN_JOINT joint steps; one process resolves the same file to
+    one device).  Tolerances: the poses and the joint's history to
+    BOX_SPREAD x the spread of this process's own runs (the refine twice,
+    and split 4 + 4 as the ranks split it; the joint twice, and from inits
+    nudged by 1e-6; each entry point twice, and ``run_multi``'s pool
+    refined again in the ranks' groups), at least RUN_CARD_TOL; the
+    scores to BOX_SPREAD x the spread between this process's scores at view
+    chunks of 25 and of 13 (what a rank's chunk holds), winners held where
+    the gap beats that, and the entry point's selected views equal; the
+    NeuS losses of the first three steps to NEUS_TOL relative (phase 9c's,
+    over its three steps) against the whole batch, and of all
+    SHARD_NEUS_STEPS to SHARD_WITNESS_TOL against this process taking the
+    ranks' two halves in their order (``_witness_step``: the same sums in
+    the same order), the whole batch's own drift over the 50 steps printed.
+    Rank 0 alone writes each entry point's artifacts, the poses it returned.
+    Prints each rank's K1/K2/K3 launches and wall seconds per case; they are
+    two ranks sharing one card, not a scaling figure."""
+    import yaml
+
+    from dynhor_tpu_torch import run as RUN
+    from dynhor_tpu_torch import run_multi as RM
+    from dynhor_tpu_torch.parallel import multiseq as MS
+    from dynhor_tpu_torch.tracker import jointopt as TJ
+    from dynhor_tpu_torch.tracker import priors as TP
+    from dynhor_tpu_torch.tracker import refine as RF
+    from dynhor_tpu_torch.utils import geometry as G
+
+    mesh, rot, trans, K, _, masks, cap, act_cap = scene(dev)
+    gen = torch.Generator().manual_seed(1)
+    params, dcfg, vit_digest = _vit(dev)
+    gt = torch.randn((FRAMES, dcfg.feat_size**2, dcfg.embed_dim), generator=gen)
+    gt = (gt / torch.linalg.norm(gt, dim=-1, keepdim=True)).to(dev)
+    targets = RF.FrameTargets(masks, gt, K.expand(FRAMES, 3, 3).contiguous())
+    rng = np.random.default_rng(6)
+    r6 = G.matrix_to_rot6d(rot)
+    R0 = G.rot6d_to_matrix(r6 + torch.as_tensor(0.05 * rng.standard_normal(r6.shape),
+                                                dtype=torch.float32, device=dev))
+    t0 = trans + torch.as_tensor(0.02 * rng.standard_normal((FRAMES, 3)), dtype=torch.float32,
+                                 device=dev)
+    pverts, pfaces, puvs, ptex = prior_mesh(dev)
+    crops, pmasks, _ = render_frames(pverts, pfaces, puvs, ptex, FRAMES, CROP, 21)
+    gt_feats, cos_masks = TP.frame_gt_features(params, dcfg, crops, pmasks, "bfloat16", dev)
+    view_rots = uniform_rotations(PRIOR_VIEWS, 22, dev)
+    pcfg = TP.PriorConfig(num_views=PRIOR_VIEWS)
+    radius, _ = TP.mesh_radius_center(pverts)
+    window = TP.compute_window(pcfg, float(TP.mesh_norm_radius(pverts)),
+                               float(pcfg.distance_scale * radius))
+    poses = os.path.join(tmp, "gt_obj_infos")
+    write_gt_poses(run["seq_dir"], poses)
+
+    def cut_config(name, root, obj, views, exp):
+        path = os.path.join(tmp, f"{name}_{exp}.yaml")
+        with open(path, "w") as fh:
+            yaml.safe_dump({
+                "seq_name": name, "exp_name": exp,
+                "data_info": {"dataroot": root, "obj_path": os.path.abspath(obj)},
+                "system": {"devices": SHARD_WORLD, "init_num_iterations": STEPS,
+                           "joint_num_iterations": SHARD_RUN_JOINT,
+                           "prior": {"num_views": views}}}, fh)
+        return path
+
+    run_cfg = cut_config("custom_shoes", run["seq_dir"], SHOES, SHARD_RUN_VIEWS, "shard")
+    multi_cfgs = [cut_config(name, root, obj, SHARD_MULTI_VIEWS, "shard_multi")
+                  for name, (root, obj) in seqs.items()]
+    exps_ranks = [os.path.join(tmp, f"shard_exps_rank{r}") for r in range(SHARD_WORLD)]
+    inp = {"run_cfg": run_cfg, "multi_cfgs": multi_cfgs, "exps_ranks": exps_ranks,
+           "mesh": [t.cpu() for t in mesh], "targets": [t.cpu() for t in targets],
+           "rot": rot.cpu(), "trans": trans.cpu(), "cap": cap, "act_cap": act_cap,
+           "R0": R0.cpu(), "t0": t0.cpu(), "seq_dir": run["seq_dir"], "poses": poses,
+           "priors": {"mesh": [pverts.cpu(), pfaces.cpu(), puvs.cpu(), ptex.cpu()],
+                      "view_rots": view_rots.cpu(), "crops": crops.cpu(), "masks": pmasks.cpu(),
+                      "gt_feats": gt_feats.cpu(), "cos_masks": cos_masks.cpu(),
+                      "window": window}}
+    inp_path = os.path.join(tmp, "shard_inputs.pt")
+    torch.save(inp, inp_path)
+
+    # ---- this process: the same work, and the spreads ----
+    one, times = {}, {}
+    cfg = _shard_refine_cfg(inp)
+    refine = lambda r_rows, sl=slice(None): RF.refine_poses(  # noqa: E731
+        mesh, RF.FrameTargets(*(t[sl] for t in targets)), r_rows[sl], trans[sl], params,
+        dcfg, cfg, device=dev)
+    reset_launches()
+    (one["refine"], times["refine"]) = wall(lambda: refine(rot))
+    one_launches = {"refine": read_launches()}
+    again = refine(rot)
+    halves = [refine(rot, slice(0, FRAMES // 2)), refine(rot, slice(FRAMES // 2, None))]
+    split = torch.cat([h.rot6d for h in halves]), torch.cat([h.translations for h in halves])
+
+    def pose_diff(a, b):
+        return max(float((a[0] - b[0]).abs().max()), float((a[1] - b[1]).abs().max()))
+
+    ref_pose = (one["refine"].rot6d, one["refine"].translations)
+    spread_r = max(pose_diff(ref_pose, (again.rot6d, again.translations)),
+                   pose_diff(ref_pose, split))
+    tol_r = max(RUN_CARD_TOL, BOX_SPREAD * spread_r)
+
+    jcfg = _shard_joint_cfg(inp)
+    jargs = (mesh.verts, mesh.faces, R0, t0, targets.K_rois, masks)
+    reset_launches()
+    one["joint"], times["joint"] = wall(lambda: TJ.joint_optimize(*jargs, jcfg, device=dev))
+    one_launches["joint"] = read_launches()
+    j_again = TJ.joint_optimize(*jargs, jcfg, device=dev)
+    nudge = 1.0 + 1e-6 * torch.randn(R0.shape, generator=torch.Generator().manual_seed(3))
+    j_nudged = TJ.joint_optimize(mesh.verts, mesh.faces, G.rot6d_to_matrix(
+        G.matrix_to_rot6d(R0) * nudge[..., :2].to(dev)), t0, targets.K_rois, masks, jcfg,
+        device=dev)
+    jref = (one["joint"].rot6d, one["joint"].translations)
+    spread_j = max(pose_diff(jref, (r.rot6d, r.translations)) for r in (j_again, j_nudged))
+    tol_j = max(RUN_CARD_TOL, BOX_SPREAD * spread_j)
+    h_ref = {k: v.numpy() for k, v in one["joint"].history.items()}
+    spread_h = max(float(np.abs(r.history["loss"].numpy() - h_ref["loss"]).max())
+                   for r in (j_again, j_nudged))
+    tol_h = max(RUN_CARD_TOL, BOX_SPREAD * spread_h)
+
+    pargs = (params, dcfg, pverts, pfaces, puvs, ptex, view_rots, crops, pmasks, gt_feats,
+             cos_masks)
+    pkw = dict(host_batch=1000, prescreen_edge=112, prescreen_scale=2, topk=24, device=dev)
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        one["priors"], times["priors"] = wall(
+            lambda: TP.prior_scores_two_stage(*pargs, pcfg, window, **pkw))
+        one_launches["priors"] = read_launches()
+        chunk13 = TP.prior_scores_two_stage(
+            *pargs, dataclasses.replace(pcfg, view_chunk=-(-pcfg.view_chunk // SHARD_WORLD)),
+            window, **pkw)
+    spread_s = float((one["priors"] - chunk13).abs().max())
+    tol_s = max(RUN_CARD_TOL, BOX_SPREAD * spread_s)
+
+    (one["neus"], times["neus"]) = wall(lambda: _neus_steps(dev, inp))
+    (witness, times["witness"]) = wall(lambda: _neus_steps(dev, inp, witness=True))
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+    drift_n = rel(witness[0], one["neus"][0])  # the split itself, in one process
+
+    # The entry points, twice each (their spread), launches counted.
+    def entry(fn):
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res, secs = wall(fn)
+        return res, secs, read_launches()
+
+    def run_once(root):
+        return entry(lambda: RUN.main(["--config_path", run_cfg, "--exps_root", root]))
+
+    def multi_once(root):
+        return entry(lambda: RM.main(["--config_paths", *multi_cfgs, "--exps_root", root]))
+
+    def arrays(res):
+        if hasattr(res, "rotations_row"):
+            return res.rotations_row, res.translations
+        return (np.concatenate([q["rotations_row"] for q in res.sequences]),
+                np.concatenate([q["translations"] for q in res.sequences]))
+
+    def np_diff(a, b):
+        return max(float(np.abs(np.asarray(x) - np.asarray(y)).max()) for x, y in zip(a, b))
+
+    one["run"], times["run"], one_launches["run"] = run_once(os.path.join(tmp, "shard_exps_a"))
+    run_b = run_once(os.path.join(tmp, "shard_exps_b"))[0]
+    spread_e = np_diff(arrays(one["run"]), arrays(run_b))
+    tol_e = max(RUN_CARD_TOL, BOX_SPREAD * spread_e)
+    pooled = _Spy(MS, "refine_poses_multi")
+    try:
+        one["multi"], times["multi"], one_launches["multi"] = multi_once(
+            os.path.join(tmp, "shard_exps_a"))
+    finally:
+        pooled.restore()
+    multi_b = multi_once(os.path.join(tmp, "shard_exps_b"))[0]
+    # The pool again in the ranks' groups (each rank refines its half in one
+    # group): other batch shapes, so other roundings in the bf16 ViT.
+    p_args, p_kw, _ = pooled.calls[-1]
+    regrouped = MS.refine_poses_multi(
+        *p_args, **{**p_kw, "frames_per_launch": len(seqs) * RUN_FRAMES // SHARD_WORLD})
+    spread_m = max(np_diff(arrays(one["multi"]), arrays(multi_b)), *(
+        float((one["multi"].refine.rot6d - x.rot6d).abs().max())
+        for x in (multi_b.refine, regrouped)))
+    tol_m = max(RUN_CARD_TOL, BOX_SPREAD * spread_m)
+
+    # ---- the ranks ----
+    rendezvous = f"file://{os.path.join(tmp, 'shard_rendezvous')}"
+    outs = [os.path.join(tmp, f"shard_rank{r}.pt") for r in range(SHARD_WORLD)]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t_start = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r), rendezvous, inp_path,
+         outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+    ) for r in range(SHARD_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.time() - t_start
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], file=sys.stderr, flush=True)
+        check(p.returncode == 0, f"shard rank {r} exited with {p.returncode}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    print(
+        f"[shard] one process on the card: wall s refine {times['refine']:.3f}, joint "
+        f"{times['joint']:.3f}, priors {times['priors']:.3f}, neus {times['neus']:.3f}, neus "
+        f"as the ranks' halves {times['witness']:.3f}, run {times['run']:.3f}, run_multi "
+        f"{times['multi']:.3f}; launches refine K1 {one_launches['refine']['K1']}, joint K1 "
+        f"{one_launches['joint']['K1']}, priors K3 {one_launches['priors']['K3']}, run "
+        f"{ {k: one_launches['run'][k] for k in SHARD_KEYS} }, run_multi "
+        f"{ {k: one_launches['multi'][k] for k in SHARD_KEYS} }; the {SHARD_WORLD} ranks' whole "
+        f"run {t_ranks:.1f} s with start-up — {card}", flush=True,
+    )
+    print(
+        f"[shard] NeuS in this process, {SHARD_NEUS_STEPS} steps: the ranks' two halves taken in "
+        f"their order against the whole batch {drift_n:.3g} relative (the split's own "
+        f"summation order; the first 3 steps {rel(witness[0][:3], one['neus'][0][:3]):.3g}); "
+        f"entry points run twice: poses {spread_e:.3g} apart (run), {spread_m:.3g} (run_multi, "
+        f"with its pool refined again in the ranks' groups of "
+        f"{len(seqs) * RUN_FRAMES // SHARD_WORLD})",
+        flush=True,
+    )
+
+    # ---- compare: each rank's numbers printed, then checked ----
+    top = torch.topk(one["priors"], 2, dim=1).values
+    decided = (top[:, 0] - top[:, 1]) > tol_s
+    for r, o in enumerate(ranks):
+        rr, jr, ln = o["refine"], o["joint"], o["launches"]
+        sc_ = o["priors"].to(dev)
+        err_r = pose_diff(ref_pose, (rr["rot6d"].to(dev), rr["translations"].to(dev)))
+        err_j = pose_diff(jref, (jr["rot6d"].to(dev), jr["trans"].to(dev)))
+        err_h = float(np.abs(jr["history"]["loss"] - h_ref["loss"]).max())
+        err_s = float((sc_ - one["priors"]).abs().max())
+        n_losses, n_digest = o["neus"]
+        err_n3, err_n = rel(n_losses[:3], one["neus"][0][:3]), rel(n_losses, one["neus"][0])
+        err_w = rel(n_losses, witness[0])
+        er, em = o["run"], o["run_multi"]
+        err_e = np_diff(arrays(one["run"]), (er["rot"], er["trans"]))
+        err_m = max(np_diff(arrays(one["multi"]), (em["rot"], em["trans"])),
+                    float((one["multi"].refine.rot6d.cpu() - em["pooled"]).abs().max()))
+        sec = o["seconds"]
+        same_sel = np.array_equal(er["selected"], one["run"].selected_idx)
+        same_w = "equal" if n_digest == witness[1] else "differ"
+        print(
+            f"[shard] rank {r} of {SHARD_WORLD} (gloo, two ranks sharing one card): launches "
+            f"refine {ln['refine']}, joint {ln['joint']}, priors {ln['priors']}, neus "
+            f"{ln['neus']}, run {ln['run']}, run_multi {ln['run_multi']}; wall s refine "
+            f"{sec['refine']:.3f}, joint {sec['joint']:.3f}, priors {sec['priors']:.3f}, neus "
+            f"{sec['neus']:.3f}, run {sec['run']:.3f}, run_multi {sec['run_multi']:.3f} — {card}",
+            flush=True,
+        )
+        print(
+            f"[shard] rank {r} against one process: refine poses {err_r:.3g} (bound {tol_r:.3g},"
+            f" spread {spread_r:.3g}), joint poses {err_j:.3g} (bound {tol_j:.3g}), joint loss "
+            f"history {err_h:.3g} (bound {tol_h:.3g}), scores {err_s:.3g} (bound {tol_s:.3g}, "
+            f"chunk spread {spread_s:.3g}; {int(decided.sum())} of {FRAMES} winners decided), "
+            f"NeuS losses {err_n3:.3g} relative over 3 steps (bound {NEUS_TOL:g}), over "
+            f"{SHARD_NEUS_STEPS} {err_w:.3g} against the halves in this process (bound "
+            f"{SHARD_WITNESS_TOL:g}; final weights {same_w}) and {err_n:.3g} against the whole "
+            f"batch; run poses {err_e:.3g} (bound {tol_e:.3g}), selected views "
+            f"{'equal' if same_sel else 'DIFFER'}; run_multi poses {err_m:.3g} (bound {tol_m:.3g})", flush=True,
+        )
+        check(o["vit_digest"][1] == vit_digest,
+              f"rank {r}: the replicated ViT weights differ from this process's")
+        check(rr["overflow"] == 0, f"rank {r}: the sharded refine overflowed")
+        check(err_r <= tol_r, f"rank {r}: sharded refine poses differ by {err_r:.3g}")
+        check(err_j <= tol_j and err_h <= tol_h, f"rank {r}: the sharded joint differs")
+        check(float(jr["history"]["bin_overflow"].max()) == 0, f"rank {r}: the joint overflowed")
+        check(err_s <= tol_s, f"rank {r}: sharded scores differ by {err_s:.3g}")
+        check(bool((sc_.argmax(1) == one["priors"].argmax(1))[decided].all()),
+              f"rank {r}: a decided winner of the sharded scoring differs")
+        check(err_n3 <= NEUS_TOL, f"rank {r}: sharded NeuS losses differ over 3 steps")
+        check(err_w <= SHARD_WITNESS_TOL,
+              f"rank {r}: sharded NeuS losses differ from the halves taken in one process")
+        check(n_digest == ranks[0]["neus"][1], f"rank {r}: the NeuS replicas diverged")
+        check(ln["refine"]["K1"] == STEPS and ln["refine"]["K2"] == STEPS,
+              f"rank {r}: sharded refine launches {ln['refine']}")
+        check(ln["joint"]["K1"] == JOINT_STEPS and ln["joint"]["K2"] == JOINT_STEPS,
+              f"rank {r}: sharded joint launches {ln['joint']}")
+        check(ln["priors"]["K3"] == one_launches["priors"]["K3"] > 0,
+              f"rank {r}: sharded scoring launched K3 {ln['priors']['K3']} times, one process "
+              f"{one_launches['priors']['K3']}")
+        # run: only the scoring is sharded; every rank refines and joins all
+        # frames, as one process does.
+        check(same_sel, f"rank {r}: run selected {er['selected']}, one process {one['run'].selected_idx}")
+        check(err_e <= tol_e, f"rank {r}: run poses differ by {err_e:.3g}")
+        check(ln["run"] == {k: one_launches["run"][k] for k in SHARD_KEYS}
+              and ln["run"]["K3"] > 0 and ln["run"]["K1"] > 0,
+              f"rank {r}: run launches {ln['run']}, one process {one_launches['run']}")
+        # run_multi: each rank refines its half of the pooled frames in one
+        # group (one process: groups of FRAMES_PER_CARD), every rank joins
+        # every sequence.
+        check(em["overflow"] == 0, f"rank {r}: the sharded pool overflowed")
+        check(err_m <= tol_m, f"rank {r}: run_multi poses differ by {err_m:.3g}")
+        n_pool = len(seqs) * RUN_FRAMES
+        groups = -(-(n_pool // SHARD_WORLD) // MS.FRAMES_PER_CARD)
+        want = STEPS * groups + len(seqs) * SHARD_RUN_JOINT
+        check(ln["run_multi"]["K1"] == ln["run_multi"]["K2"] == want
+              and ln["run_multi"]["K3"] == one_launches["multi"]["K3"] > 0,
+              f"rank {r}: run_multi launches {ln['run_multi']} (K1/K2 {want} wanted), one "
+              f"process {one_launches['multi']}")
+
+    # Rank 0 alone wrote each entry point's experiments: the poses it
+    # returned, each sequence's frames, its config and board.
+    wrote1 = sorted(os.listdir(exps_ranks[1])) if os.path.exists(exps_ranks[1]) else []
+    check(not wrote1, f"rank 1 wrote {wrote1}")
+    r0 = ranks[0]
+    written = [("custom_shoes", "shard", r0["run"]["rot"], r0["run"]["trans"])]
+    for i, name in enumerate(seqs):
+        sl = slice(i * RUN_FRAMES, (i + 1) * RUN_FRAMES)
+        written.append((name, "shard_multi", r0["run_multi"]["rot"][sl],
+                        r0["run_multi"]["trans"][sl]))
+    for name, exp, rot, trans in written:
+        exp_dir = os.path.join(exps_ranks[0], name, exp)
+        npzs = sorted(os.listdir(os.path.join(exp_dir, "obj_infos")))
+        check(npzs == [f"{i:04d}.npz" for i in range(RUN_FRAMES)], f"{name}/{exp}: {npzs}")
+        for i, fname in enumerate(npzs):
+            d = np.load(os.path.join(exp_dir, "obj_infos", fname))
+            check(np.array_equal(d["R"], rot[i].T.astype(np.float32))
+                  and np.array_equal(d["T"].reshape(-1), trans[i].reshape(-1).astype(np.float32)),
+                  f"{name}/{exp} {fname}: not the poses rank 0 returned")
+        check(os.path.exists(os.path.join(exp_dir, "config.yaml"))
+              and os.listdir(os.path.join(exp_dir, "board")), f"{name}/{exp}: no config or board")
+    print(f"[shard] rank 0 alone wrote the entry points' experiments ({len(written)} sequences "
+          f"of {RUN_FRAMES} pose files, config, board); rank 1 wrote nothing", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the card; it never runs the CPU path)")
@@ -2999,11 +3625,13 @@ def main() -> None:
         phase_multihyp(dev, smi, tmp, run)
         phase_vis(dev, smi, run)
         phase_multihyp_small(dev, smi)
-        phase_multi(dev, smi, tmp, run)
+        seqs = phase_multi(dev, smi, tmp, run)
         phase_multi_small(dev)
         phase_recon(dev, smi, tmp, run)
         phase_recon_bench(dev, smi)
         phase_recon_small(dev)
+        phase_shard_nccl(dev, tmp)
+        phase_shard(dev, smi, tmp, run, seqs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]
@@ -3020,4 +3648,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_worker(sys.argv[2:])
+    else:
+        main()

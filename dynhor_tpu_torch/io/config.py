@@ -114,7 +114,7 @@ DEFAULTS: dict[str, Any] = {
         "max_faces_per_tile": None,
         "face_chunk": 512,
         "frame_chunk": None,  # optional microbatching of frames
-        "devices": None,  # None or 1 = one card (sharding is not ported yet)
+        "devices": None,  # ranks the prior views are sharded over; None = every rank
         # Validate the dataroot against the README.md:27-44 convention
         # before loading (io/ingest.py) — errors raise, warnings print.
         "validate_data": True,

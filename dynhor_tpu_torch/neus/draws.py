@@ -26,19 +26,28 @@ Tensor = torch.Tensor
 class Key:
     """A node of the key tree: the root seed, the device the draws land on
     and the path of ``("split", n, j)`` / ``("fold_in", i)`` steps from the
-    root."""
+    root.  ``rows`` = (lo, hi, n) marks a key of rows lo:hi of an n-ray
+    batch (a rank's shard of the rays): a per-ray draw at it
+    (``draw_rows``) is the whole batch's draw, sliced, and its children
+    keep the mark."""
 
-    def __init__(self, seed: int, device: str | torch.device = "cpu", path: tuple = ()):
+    def __init__(self, seed: int, device: str | torch.device = "cpu", path: tuple = (),
+                 rows: tuple[int, int, int] | None = None):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.path = tuple(path)
+        self.rows = rows
         self._gen: torch.Generator | None = None
 
     def split(self, n: int = 2) -> list[Key]:
-        return [Key(self.seed, self.device, self.path + (("split", n, j),)) for j in range(n)]
+        return [Key(self.seed, self.device, self.path + (("split", n, j),), self.rows)
+                for j in range(n)]
 
     def fold_in(self, i: int) -> Key:
-        return Key(self.seed, self.device, self.path + (("fold_in", int(i)),))
+        return Key(self.seed, self.device, self.path + (("fold_in", int(i)),), self.rows)
+
+    def for_rows(self, lo: int, hi: int, n: int) -> Key:
+        return Key(self.seed, self.device, self.path, (int(lo), int(hi), int(n)))
 
     def generator(self) -> torch.Generator:
         if self._gen is None:
@@ -60,3 +69,14 @@ def draw(key: Key, kind: str, shape: tuple, low: float = 0.0, high: float = 1.0)
     if kind == "randint":
         return torch.randint(int(low), int(high), shape, generator=gen, device=dev)
     raise ValueError(f"unknown draw kind {kind!r}")
+
+
+def draw_rows(key: Key, kind: str, shape: tuple, low: float = 0.0, high: float = 1.0) -> Tensor:
+    """``draw`` of a per-ray shape (rays first).  At a key with ``rows`` =
+    (lo, hi, n) it draws the whole batch's (n, ...) values and keeps rows
+    lo:hi, so a rank's shard of the rays gets what one process draws for
+    them."""
+    if key.rows is None:
+        return draw(key, kind, shape, low, high)
+    lo, hi, n = key.rows
+    return draw(key, kind, (n,) + tuple(shape[1:]), low, high)[lo:hi]

@@ -118,7 +118,7 @@ def sample_pdf(bins: Tensor, weights: Tensor, n_samples: int, key: Key | None) -
     if key is None:
         u = ((torch.arange(n_samples, device=cdf.device) + 0.5) / n_samples).expand(shape)
     else:
-        u = draws.draw(key, "uniform", shape)
+        u = draws.draw_rows(key, "uniform", shape)
     idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
     last = bins.shape[-1] - 1
     below = torch.clamp(idx - 1, 0, last)
@@ -220,7 +220,12 @@ def shade_selection(weights: Tensor, k: int) -> Tensor:
 def render_rays(field: NeuSField, rcfg: RenderConfig, rays: Rays, key: Key | None = None,
                 occ: Tensor | None = None) -> RenderOut:
     """Full NeuS render of a ray batch.  occ: the flat occupancy grid
-    (``occupancy_from_sdf``), required when ``rcfg.sampler == "occgrid"``."""
+    (``occupancy_from_sdf``), required when ``rcfg.sampler == "occgrid"``.
+
+    Every ray is rendered on its own (the shade selection too is per ray),
+    so a shard of the rays renders as those rows of the whole batch; with a
+    key marked ``Key.for_rows`` its draws are those rows of the whole
+    batch's draws."""
     k_strat, k_imp = (None, None) if key is None else key.split()
     dev = rays.origins.device
 
@@ -242,7 +247,7 @@ def render_rays(field: NeuSField, rcfg: RenderConfig, rays: Rays, key: Key | Non
             mids = 0.5 * (t[..., 1:] + t[..., :-1])
             upper = torch.cat([mids, t[..., -1:]], dim=-1)
             lower = torch.cat([t[..., :1], mids], dim=-1)
-            t = lower + (upper - lower) * draws.draw(k_strat, "uniform", tuple(t.shape))
+            t = lower + (upper - lower) * draws.draw_rows(k_strat, "uniform", tuple(t.shape))
         if rcfg.up_sample_steps > 0 and rcfg.n_importance > 0:
             sdf_c = sdf_only(field, _points(rays, t)).detach()
             n_per = rcfg.n_importance // max(rcfg.up_sample_steps, 1)

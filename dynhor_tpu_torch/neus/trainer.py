@@ -22,6 +22,7 @@ import os
 
 import torch
 
+from ..parallel import mesh as PM
 from ..utils.device import resolve_device
 from . import draws
 from .data import CorrData, ReconData
@@ -151,33 +152,62 @@ def init_train_state(key: Key, sdf_cfg: SDFConfig, tcfg: TrainConfig) -> TrainSt
 
 
 def loss_fn(field: NeuSField, bg: Tensor, key: Key, data: ReconData, corr: CorrData | None,
-            occ: Tensor | None, rcfg: RenderConfig, tcfg: TrainConfig):
-    """The step's loss and its logs (tensors)."""
+            occ: Tensor | None, rcfg: RenderConfig, tcfg: TrainConfig, ray_mesh=None):
+    """The step's loss and its logs (tensors).
+
+    ``ray_mesh``: a ``parallel.mesh`` mesh with a "rays" axis.  Every rank
+    draws the whole ray batch and renders its contiguous slice (the render's
+    draws sliced from the whole batch's, ``Key.for_rows``).  The loss is
+    then this rank's term of the global loss: the per-ray means divide by
+    the whole batch, and the terms that are not per ray (the uniform
+    Eikonal points, the shell, the origin, the correspondences) are the
+    first rank's alone, so the sum over the ranks, and of their gradients,
+    counts each once.  The logs are then the global values, on every rank."""
     k_pix, k_render, k_corr, k_eik, k_shell = key.split(5)
     fr, xy, rgb_gt, mask_gt, nrm_gt = sample_ray_batch(k_pix, data, tcfg.batch_rays)
+    n = fr.shape[0]
+    mask_sum = mask_gt.sum()
+    root, share = True, 1.0
+    if ray_mesh is not None:
+        index, size = PM.axis_index(ray_mesh, "rays"), PM.axis_size(ray_mesh, "rays")
+        per = -(-n // size)
+        lo, hi = min(index * per, n), min((index + 1) * per, n)
+        root, share = index == 0, (hi - lo) / n
+        k_render = k_render.for_rows(lo, hi, n)
+        fr, xy, rgb_gt, mask_gt = fr[lo:hi], xy[lo:hi], rgb_gt[lo:hi], mask_gt[lo:hi]
+        nrm_gt = None if nrm_gt is None else nrm_gt[lo:hi]
     out = render_rays(field, rcfg, _rays_for(data, fr, xy, rcfg.bound), k_render, occ)
 
+    def ray_mean(x):  # this rank's term of the mean over the whole batch
+        return x.mean() if ray_mesh is None else x.sum() / (n * x[0].numel())
+
+    zero = out.inv_s.new_zeros(())
     rgb_pred = out.rgb + (1.0 - out.acc[:, None]) * torch.sigmoid(bg)
-    l_rgb = torch.abs(rgb_pred - rgb_gt).mean()
+    l_rgb = ray_mean(torch.abs(rgb_pred - rgb_gt))
     acc = clip(out.acc, 1e-4, 1.0 - 1e-4)
-    l_mask = -(mask_gt * torch.log(acc) + (1.0 - mask_gt) * torch.log(1.0 - acc)).mean()
-    eik = out.eikonal
+    l_mask = -ray_mean(mask_gt * torch.log(acc) + (1.0 - mask_gt) * torch.log(1.0 - acc))
+    eik = out.eikonal if ray_mesh is None else out.eikonal * share
     if tcfg.n_eikonal_uniform > 0:  # uniform-space Eikonal
-        pts_u = rcfg.bound * draws.draw(k_eik, "uniform", (tcfg.n_eikonal_uniform, 3), -1.0, 1.0)
-        g_u = sdf_grad(field, pts_u)
-        eik = 0.5 * (eik + torch.mean((safe_norm(g_u)[..., 0] - 1.0) ** 2))
+        eik_u = zero
+        if root:
+            pts_u = rcfg.bound * draws.draw(k_eik, "uniform", (tcfg.n_eikonal_uniform, 3), -1.0, 1.0)
+            g_u = sdf_grad(field, pts_u)
+            eik_u = torch.mean((safe_norm(g_u)[..., 0] - 1.0) ** 2)
+        eik = 0.5 * (eik + eik_u)
     loss = tcfg.lw_rgb * l_rgb + tcfg.lw_mask * l_mask + tcfg.lw_eikonal * eik
-    logs = {"rgb": l_rgb, "mask": l_mask, "eikonal": eik, "inv_s": out.inv_s}
+    logs = {"rgb": l_rgb, "mask": l_mask, "eikonal": eik}
 
     if tcfg.lw_shell > 0:
-        k_dir, k_rad = k_shell.split()
-        d = draws.draw(k_dir, "normal", (128, 3))
-        d = d / clip(torch.linalg.norm(d, dim=-1, keepdim=True), 1e-9)
-        r = rcfg.bound * draws.draw(k_rad, "uniform", (128, 1), tcfg.shell_radius, 1.0)
-        l_shell = torch.relu(tcfg.shell_margin - sdf_only(field, d * r)).mean()
+        l_shell = zero
+        if root:
+            k_dir, k_rad = k_shell.split()
+            d = draws.draw(k_dir, "normal", (128, 3))
+            d = d / clip(torch.linalg.norm(d, dim=-1, keepdim=True), 1e-9)
+            r = rcfg.bound * draws.draw(k_rad, "uniform", (128, 1), tcfg.shell_radius, 1.0)
+            l_shell = torch.relu(tcfg.shell_margin - sdf_only(field, d * r)).mean()
         loss = loss + tcfg.lw_shell * l_shell
         logs["shell"] = l_shell
-    if tcfg.lw_origin > 0:
+    if tcfg.lw_origin > 0 and root:
         pts_o = 0.05 * draws.draw(k_shell.fold_in(1), "normal", (16, 3))
         l_origin = torch.relu(sdf_only(field, pts_o) + tcfg.origin_margin).mean()
         loss = loss + tcfg.lw_origin * l_origin
@@ -187,31 +217,48 @@ def loss_fn(field: NeuSField, bg: Tensor, key: Key, data: ReconData, corr: CorrD
         nrm_ref = nrm_gt * nrm_gt.new_tensor([1.0, -1.0, -1.0]) if tcfg.normal_flip_yz else nrm_gt
         # A large eps: |n_pred| -> 0 early in training (acc ~ 0).
         cos = torch.sum(safe_normalize(n_cam, eps=0.1) * safe_normalize(nrm_ref, eps=0.1), dim=-1)
-        l_normal = ((1.0 - cos) * mask_gt).sum() / (mask_gt.sum() + 1e-6)
+        l_normal = ((1.0 - cos) * mask_gt).sum() / (mask_sum + 1e-6)
         loss = loss + tcfg.lw_normal * l_normal
         logs["normal"] = l_normal
 
     if corr is not None and tcfg.lw_corr > 0:
-        m = corr.frame_i.shape[0]
-        idx = draws.draw(k_corr, "randint", (min(256, m),), 0, m)
-        fi, fj = corr.frame_i[idx].long(), corr.frame_j[idx].long()
-        out_i = render_rays(field, rcfg, _rays_for(data, fi, corr.xy_i[idx], rcfg.bound), None, occ)
-        # Project frame-i surface points into frame j; a generous z floor
-        # keeps the 1/z gradient bounded.
-        pts_cam_j = torch.einsum("nj,njk->nk", out_i.points, data.R_rows[fj]) + data.Ts[fj]
-        z_j = pts_cam_j[:, 2:]
-        uv = torch.einsum("ij,nj->ni", data.K, pts_cam_j)
-        uv = uv[:, :2] / clip(z_j, 0.1)
-        scale = float(max(data.masks.shape[1], data.masks.shape[2]))
-        conf = ((out_i.acc > 0.5) & (z_j[:, 0] > 0.1)).float().detach()
-        resid = (uv - corr.xy_j[idx]) / scale * conf[:, None]
-        l_corr = _huber(resid, 0.01).mean(dim=-1).sum() / (conf.sum() + 1e-6)
+        l_corr = zero
+        if root:
+            l_corr = _corr_loss(field, k_corr, data, corr, occ, rcfg)
         loss = loss + tcfg.lw_corr * l_corr
         logs["corr"] = l_corr
 
-    logs["psnr"] = -10.0 * torch.log10(torch.mean((rgb_pred - rgb_gt) ** 2) + 1e-8)
+    mse = ray_mean((rgb_pred - rgb_gt) ** 2)
     logs["loss"] = loss
+    if ray_mesh is not None:
+        names = list(logs)
+        summed = PM.all_reduce(torch.stack([logs[k].detach() for k in names] + [mse.detach()]),
+                               ray_mesh, "rays")
+        logs = dict(zip(names, summed[:-1]))
+        mse = summed[-1]
+    logs["inv_s"] = out.inv_s
+    logs["psnr"] = -10.0 * torch.log10(mse + 1e-8)
     return loss, logs
+
+
+def _corr_loss(field: NeuSField, k_corr: Key, data: ReconData, corr: CorrData, occ,
+               rcfg: RenderConfig) -> Tensor:
+    """The correspondence term: frame-i surface points reprojected into
+    frame j against the matched pixels (Huber, confidence-weighted)."""
+    m = corr.frame_i.shape[0]
+    idx = draws.draw(k_corr, "randint", (min(256, m),), 0, m)
+    fi, fj = corr.frame_i[idx].long(), corr.frame_j[idx].long()
+    out_i = render_rays(field, rcfg, _rays_for(data, fi, corr.xy_i[idx], rcfg.bound), None, occ)
+    # Project frame-i surface points into frame j; a generous z floor
+    # keeps the 1/z gradient bounded.
+    pts_cam_j = torch.einsum("nj,njk->nk", out_i.points, data.R_rows[fj]) + data.Ts[fj]
+    z_j = pts_cam_j[:, 2:]
+    uv = torch.einsum("ij,nj->ni", data.K, pts_cam_j)
+    uv = uv[:, :2] / clip(z_j, 0.1)
+    scale = float(max(data.masks.shape[1], data.masks.shape[2]))
+    conf = ((out_i.acc > 0.5) & (z_j[:, 0] > 0.1)).float().detach()
+    resid = (uv - corr.xy_j[idx]) / scale * conf[:, None]
+    return _huber(resid, 0.01).mean(dim=-1).sum() / (conf.sum() + 1e-6)
 
 
 def variance_band(step: int, tcfg: TrainConfig) -> tuple[float, float]:
@@ -226,29 +273,57 @@ def variance_band(step: int, tcfg: TrainConfig) -> tuple[float, float]:
     return float(torch.log(s_min) / 10.0), float(torch.log(s_max) / 10.0)
 
 
-def make_train_step(rcfg: RenderConfig, tcfg: TrainConfig):
+def make_train_step(rcfg: RenderConfig, tcfg: TrainConfig, ray_sharding=None):
     """The train step: ``step(state, key, data, corr, occ) -> logs``
     updates ``state`` in place (parameters, optimizer, background, step)
-    and returns the pre-update logs as device tensors."""
+    and returns the pre-update logs as device tensors.
+
+    ``ray_sharding``: a ``parallel.mesh`` mesh with a "rays" axis, over
+    whose ranks the field is replicated (``mesh.replicate``): data
+    parallelism over the rays, the counterpart of the JAX package's
+    ``make_train_step(ray_sharding=)``.  Each rank renders its slice of the
+    same ray batch (``loss_fn``), the gradients are summed over the ranks
+    before the global-norm clip, and every rank takes the same update, so
+    the replicas stay equal."""
 
     def train_step(state: TrainState, key: Key, data: ReconData, corr: CorrData | None = None,
                    occ: Tensor | None = None) -> dict[str, Tensor]:
         field = state.field
         state.opt.zero_grad(set_to_none=True)
         state.bg.grad = None
-        loss, logs = loss_fn(field, state.bg, key, data, corr, occ, rcfg, tcfg)
+        loss, logs = loss_fn(field, state.bg, key, data, corr, occ, rcfg, tcfg, ray_sharding)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in field.parameters() if p.grad is not None])
-        state.opt.step()
-        state.sched.step()
-        lo, hi = variance_band(state.step, tcfg)
-        with torch.no_grad():
-            field.variance.clamp_(lo, hi)
-            state.bg -= 1e-2 * state.bg.grad
-        state.step += 1
+        if ray_sharding is not None:
+            _sum_grads([*field.parameters(), state.bg], ray_sharding)
+        apply_update(state, tcfg)
         return {k: v.detach() for k, v in logs.items()}
 
     return train_step
+
+
+def apply_update(state: TrainState, tcfg: TrainConfig) -> None:
+    """The update of a step whose gradients are in place: the global-norm
+    clip, Adam under its schedule, the variance band and the background's
+    gradient step."""
+    field = state.field
+    clip_by_global_norm_([p.grad for p in field.parameters() if p.grad is not None])
+    state.opt.step()
+    state.sched.step()
+    lo, hi = variance_band(state.step, tcfg)
+    with torch.no_grad():
+        field.variance.clamp_(lo, hi)
+        state.bg -= 1e-2 * state.bg.grad
+    state.step += 1
+
+
+def _sum_grads(params: list[Tensor], mesh) -> None:
+    """Replace each gradient by its sum over the "rays" ranks, in one
+    collective."""
+    flat = PM.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), mesh, "rays")
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p).clone()
+        off += p.numel()
 
 
 def train(

@@ -1,7 +1,8 @@
 """Multi-sequence pooled tracking: several videos' frames refined in ONE
 batched loop (``BASELINE.json``'s "end-to-end multi-sequence batch").
 
-Port of ``dynhor_tpu/parallel/multiseq.py`` on one card.  Different
+Port of ``dynhor_tpu/parallel/multiseq.py``, on one card or sharded over
+ranks (``refine_poses_multi(frame_mesh=)``).  Different
 sequences track different objects, so each frame carries ITS OWN mesh:
 meshes are padded to a common (V_max, F_max) — padding vertices repeat
 vertex 0 and padding faces are the degenerate (0, 0, 0) with zero UVs,
@@ -26,12 +27,13 @@ from ..ops.shading import TextureSet
 from ..tracker import refine as RF
 from ..utils.device import resolve_device
 from ..utils.objio import MeshData
+from . import mesh as PM
 
 Tensor = torch.Tensor
 
-# Fine-mode frames a launch takes by default: the JAX package's cap for one
-# 16 GB chip.  The JAX package multiplies it by the visible devices, over
-# which it shards the group; the port runs every group on one card.
+# Fine-mode frames a card takes in a launch by default: the JAX package's
+# cap for one 16 GB chip.  A group is FRAMES_PER_CARD x the ranks the pool
+# is sharded over, as the JAX package's is x its devices.
 FRAMES_PER_CARD = 16
 
 
@@ -117,6 +119,19 @@ def _frames(batch: MultiSeqBatch, sel) -> MultiSeqBatch:
     )
 
 
+def shard_batch(batch: MultiSeqBatch, mesh, axis_name="frames") -> MultiSeqBatch:
+    """This rank's contiguous shard of the pooled frames
+    (``mesh.shard_leading`` of every per-frame leaf; the textures, one per
+    sequence, stay whole).  The pool must divide the mesh axis
+    (``mesh.pad_to_multiple`` it first)."""
+    n = batch.mesh_verts.shape[0]
+    size = PM.axis_size(mesh, axis_name)
+    if n % size:
+        raise ValueError(f"a pool of {n} frames does not divide {size} ranks; pad it first")
+    sel = PM.shard_leading(torch.arange(n), mesh, axis_name)
+    return _frames(batch, sel)
+
+
 def refine_poses_multi(
     batch: MultiSeqBatch,
     rot_init_row: Tensor,
@@ -127,6 +142,8 @@ def refine_poses_multi(
     iters_per_launch: int = 25,
     frames_per_launch: int | None = None,
     device: str | torch.device | None = None,
+    frame_mesh=None,
+    axis_name: str | tuple[str, ...] = "frames",
 ) -> RF.RefineResult:
     """Like ``tracker.refine.refine_poses``, over PER-FRAME meshes (the
     pooled multi-sequence batch): one ``torch.optim.Adam`` over every
@@ -137,46 +154,51 @@ def refine_poses_multi(
     fine-mode frames are independent (per-frame parameters and Adam state,
     a summed loss), so each group of that many frames is refined on its
     own, the last group padded by repeating the pool's first frame and the
-    results sliced back.  Default: FRAMES_PER_CARD in fine mode (the JAX
-    package takes FRAMES_PER_CARD x its devices and shards the group over
-    them; the port does not shard, so one card takes every group), the
-    whole pool in coarse mode.  ``iters_per_launch`` is
-    accepted and ignored, as ``refine_poses`` ignores it: the port runs one
-    plain loop, with no retry.  ``device``: None = the CUDA card (raises
-    without one); "cpu" runs the kernels' plain versions.
+    results sliced back.  Default: FRAMES_PER_CARD x the ranks of
+    ``frame_mesh``'s ``axis_name`` in fine mode (the JAX package's
+    FRAMES_PER_CARD x its devices), the whole pool in coarse mode.
+
+    ``frame_mesh``: the pool is sharded over ``axis_name`` (a tuple, such
+    as ``("seq", "frames")`` of ``mesh.make_seq_frame_mesh``, flattens
+    several axes): ``batch`` (``shard_batch``) and the inits are this
+    rank's shards, each group puts its frames on the ranks evenly
+    (FRAMES_PER_CARD a card in fine mode), the result holds this rank's
+    frames (``mesh.gather_leading`` gathers them) and the overflow is the
+    largest of every rank.  ``iters_per_launch`` is accepted and ignored,
+    as ``refine_poses`` ignores it: the port runs one plain loop, with no
+    retry.  ``device``: None = the CUDA card (raises without one); "cpu"
+    runs the kernels' plain versions.
     """
     del iters_per_launch
     dev = resolve_device(device)
     rot_init_row = torch.as_tensor(rot_init_row, dtype=torch.float32, device=dev)
-    trans_init = torch.as_tensor(trans_init, dtype=torch.float32, device=dev)
-    n_pool = int(rot_init_row.shape[0])
+    n_pool = int(rot_init_row.shape[0])  # this rank's frames
+    trans_init = torch.as_tensor(trans_init, dtype=torch.float32, device=dev).reshape(n_pool, 1, 3)
+    n_dev = PM.axis_size(frame_mesh, axis_name)
     if frames_per_launch is None:
-        frames_per_launch = FRAMES_PER_CARD if cfg.mode == "fine" else n_pool
-    g = max(1, min(frames_per_launch, n_pool))
-    if g < n_pool:
-        trans_init = trans_init.reshape(n_pool, 1, 3)
-        pad = (-n_pool) % g
-        order = torch.cat([torch.arange(n_pool), torch.zeros(pad, dtype=torch.int64)])
-        parts = []
-        for i in range(0, n_pool + pad, g):
-            sel = order[i : i + g]
-            parts.append(refine_poses_multi(
-                _frames(batch, sel), rot_init_row[sel.to(dev)], trans_init[sel.to(dev)],
-                dino_params, dino_cfg, cfg, frames_per_launch=g, device=dev,
-            ))
-        return RF.RefineResult(
-            *(torch.cat([getattr(p, k) for p in parts])[:n_pool] for k in RF.RefineResult._fields[:4]),
-            max_overflow=max(p.max_overflow for p in parts),
+        frames_per_launch = FRAMES_PER_CARD * n_dev if cfg.mode == "fine" else n_pool * n_dev
+    g = max(1, min(-(-frames_per_launch // n_dev), n_pool))
+    pad = (-n_pool) % g
+    order = torch.cat([torch.arange(n_pool), torch.zeros(pad, dtype=torch.int64)])
+    parts = []
+    max_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(0, n_pool + pad, g):
+        sel = order[i : i + g]
+        sub = batch if g == n_pool else _frames(batch, sel)
+        mesh = RF.MeshArrays(sub.mesh_verts, sub.mesh_faces, sub.mesh_uvs, sub.mesh_tex)
+        mesh, targets, params = RF.place_inputs(mesh, sub.targets, dino_params, cfg, dev)
+        pick = sel.to(dev)
+        result, ov, _ = RF._refine_launch(
+            mesh, targets, rot_init_row[pick], trans_init[pick], params, dino_cfg, cfg
         )
-
-    mesh = RF.MeshArrays(batch.mesh_verts, batch.mesh_faces, batch.mesh_uvs, batch.mesh_tex)
-    mesh, targets, dino_params = RF.place_inputs(mesh, batch.targets, dino_params, cfg, dev)
-    result, max_ov, _ = RF._refine_launch(
-        mesh, targets, rot_init_row, trans_init, dino_params, dino_cfg, cfg
-    )
-    max_overflow = int(max_ov)
+        parts.append(result)
+        max_ov = torch.maximum(max_ov, ov)
+    max_overflow = int(PM.all_reduce(max_ov, frame_mesh, axis_name, op="max"))
     RF.warn_overflow(max_overflow, "pooled refinement")
-    return result._replace(max_overflow=max_overflow)
+    return RF.RefineResult(
+        *(torch.cat([getattr(p, k) for p in parts])[:n_pool] for k in RF.RefineResult._fields[:4]),
+        max_overflow=max_overflow,
+    )
 
 
 def pooled_caps(batch: MultiSeqBatch, rot_row: Tensor, trans: Tensor, crop_size: int,

@@ -8,12 +8,22 @@ frame's pose in one batched loop, runs the joint temporal optimization and
 the outlier voting, and saves per-frame {R, T, K} npz files under
 <exps_root>/<seq>/<exp>/obj_infos/, as ``run.py`` does.  It runs on the CUDA
 card and raises without one, unless ``--device cpu`` asks for the CPU.
+
+On N cards, one process a card, with ``system.devices: N`` (or unset):
+
+    python -m torch.distributed.run --nproc-per-node N -m dynhor_tpu_torch.run \
+        --config_path configs/custom_shoes.yaml
+
+Each process joins the group from the launcher's environment (NCCL on the
+card, gloo with ``--device cpu``); the prior scoring shards its views over
+the ranks and rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
 import argparse
 
 from .io.config import load_config
+from .parallel.multihost import init_from_env
 from .tracker.pipeline import TrackResult, run_from_config
 
 
@@ -27,6 +37,7 @@ def main(argv: list[str] | None = None) -> TrackResult:
     )
     args = parser.parse_args(argv)
     config = load_config(args.config_path)
+    init_from_env("gloo" if args.device == "cpu" else "nccl")
     result = run_from_config(config, exps_root=args.exps_root, device=args.device)
     print(
         f"tracked {len(result.rotations_row)} frames; "

@@ -13,8 +13,14 @@ every pooled frame at its init pose.  Then, per sequence, the joint
 temporal optimization at those caps and the artifacts: per-frame {R, T, K}
 npz files under <exps_root>/<seq>/<exp>/obj_infos/, board/ and the config,
 as ``run_multi.py`` writes them.  It runs on the CUDA card and raises
-without one, unless ``--device cpu`` asks for the CPU.  ``system.devices >
-1`` raises: sharding over several cards is not ported yet.
+without one, unless ``--device cpu`` asks for the CPU.
+
+On N cards, one process a card (``python -m torch.distributed.run
+--nproc-per-node N -m dynhor_tpu_torch.run_multi ...``; NCCL on the card,
+gloo with ``--device cpu``), with ``system.devices`` unset or N: the prior
+views and the pooled frames are sharded over the ranks (groups of
+FRAMES_PER_CARD x N frames, FRAMES_PER_CARD a card), the joints run on
+every rank alike, and rank 0 writes the artifacts.
 """
 from __future__ import annotations
 
@@ -48,7 +54,9 @@ def main(argv: list[str] | None = None) -> MultiRunResult:
     from .io.artifacts import Board, copy_config, save_pose_npzs
     from .io.config import experiment_dir, load_config
     from .models import dino as dino_mod
+    from .parallel import mesh as PM
     from .parallel import multiseq as MS
+    from .parallel.multihost import init_from_env
     from .tracker import jointopt as J
     from .tracker import pipeline as PL
     from .tracker import priors as P
@@ -61,10 +69,16 @@ def main(argv: list[str] | None = None) -> MultiRunResult:
 
     dev = resolve_device(args.device)
     configs = [load_config(p) for p in args.config_paths]
-    for config in configs:
-        PL._check_ported(config["system"])
+    init_from_env("gloo" if dev.type == "cpu" else "nccl")
     prof = Profiler(device=dev)
     base = configs[0]["system"]
+    n_dev = PL.view_devices(base)
+    view_mesh = frame_mesh = None
+    if n_dev > 1:  # every rank makes the meshes; ranks past n_dev run unsharded
+        view_mesh, frame_mesh = PM.make_mesh(n_dev, "views"), PM.make_mesh(n_dev, "frames")
+        if not view_mesh.is_member:
+            view_mesh = frame_mesh = None
+    writer = PM.world()[0] == 0
     dino_params, dino_cfg = dino_mod.load_params(
         base["dino"].get("checkpoint"),
         dino_mod.DinoConfig(smaller_edge_size=int(base["dino"]["smaller_edge_size"])),
@@ -115,7 +129,7 @@ def main(argv: list[str] | None = None) -> MultiRunResult:
             scores = P.prior_scores_batched(
                 dino_params, dino_cfg, ma.verts, ma.faces, ma.face_uvs, ma.texture,
                 view_rots, gt_feats, cos_masks, prior_cfg, window,
-                host_batch=int(pc.get("host_batch", 1000)), device=dev,
+                host_batch=int(pc.get("host_batch", 1000)), device=dev, view_mesh=view_mesh,
             )
         with prof.phase("gating+autodepth"):
             gate = S.gate_all_frames(scores, view_rots.transpose(-1, -2))
@@ -163,9 +177,21 @@ def main(argv: list[str] | None = None) -> MultiRunResult:
             max_active_tiles=act_cap,
             offscreen_weight=float(cfg0["offscreen_weight"]),
         )
-        res = MS.refine_poses_multi(
-            batch, rot_all, trans_all, dino_params, dino_cfg, refine_cfg, device=dev
-        )
+        if frame_mesh is None:
+            res = MS.refine_poses_multi(
+                batch, rot_all, trans_all, dino_params, dino_cfg, refine_cfg, device=dev
+            )
+        else:
+            n_pool = rot_all.shape[0]
+            idx, _ = PM.pad_to_multiple(torch.arange(n_pool), n_dev)
+            local = MS.refine_poses_multi(
+                MS.shard_batch(MS._frames(batch, idx), frame_mesh),
+                *PM.shard_leading((rot_all[idx.to(dev)], trans_all[idx.to(dev)]), frame_mesh),
+                dino_params, dino_cfg, refine_cfg, device=dev, frame_mesh=frame_mesh,
+            )
+            res = local._replace(**{
+                k: PM.gather_leading(getattr(local, k), frame_mesh)[:n_pool]
+                for k in RF.RefineResult._fields[:4]})
     print(
         f"pooled refine over {rot_all.shape[0]} frames from {len(configs)} sequences done;"
         f" max overflow {res.max_overflow}", flush=True,
@@ -199,17 +225,19 @@ def main(argv: list[str] | None = None) -> MultiRunResult:
                 targets.target_masks, joint_cfg, device=dev,
             )
         exp_dir = experiment_dir(config, args.exps_root)
-        os.makedirs(exp_dir, exist_ok=True)
-        if config.get("_config_path"):
-            copy_config(exp_dir, config["_config_path"])
         history = {k: np.asarray(v) for k, v in jres.history.items()}
         rots = G.rot6d_to_matrix(jres.rot6d).cpu().numpy()
-        board = Board(exp_dir)
-        board.add_history(history)
-        save_pose_npzs(
-            exp_dir, seq.frame_ids, rots, jres.translations.cpu().numpy(), K_full.cpu().numpy()
-        )
-        board.close()
+        if writer:
+            os.makedirs(exp_dir, exist_ok=True)
+            if config.get("_config_path"):
+                copy_config(exp_dir, config["_config_path"])
+            board = Board(exp_dir)
+            board.add_history(history)
+            save_pose_npzs(
+                exp_dir, seq.frame_ids, rots, jres.translations.cpu().numpy(),
+                K_full.cpu().numpy()
+            )
+            board.close()
         print(
             f"{config['seq_name']}: joint iou {float(history['iou_object'][-1]):.4f}"
             f" -> {exp_dir}/obj_infos", flush=True,

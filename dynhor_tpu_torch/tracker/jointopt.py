@@ -16,7 +16,7 @@ stacked on the device and read to the host once, at the chunk's end.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -24,6 +24,7 @@ from ..ops import rasterize as rz
 from ..ops.raster_fused import rasterize_silhouette
 from ..ops.rasterize_tiled import soft_silhouette_tiled
 from ..ops.silhouette import soft_silhouette
+from ..parallel import mesh as PM
 from ..utils import geometry as G
 from ..utils.device import resolve_device
 from ..utils.masks import batch_mask_iou
@@ -60,10 +61,26 @@ class JointResult(NamedTuple):
     history: dict[str, Tensor]  # per-step scalars (loss terms + iou metric), on the CPU
 
 
-def _sil_and_smooth(params, verts, faces, K_rois, ref_masks, keep_masks, cfg: JointConfig):
+class _FrameShard(NamedTuple):
+    """The frame axis sharded over ``"frames"`` of ``mesh``: the global
+    frame count and keep-mask sum, the normalizers of the global means."""
+
+    mesh: Any
+    n_frames: int
+    keep_sum: Tensor
+
+
+def _sil_and_smooth(params, verts, faces, K_rois, ref_masks, keep_masks, cfg: JointConfig,
+                    shard: _FrameShard | None = None):
     """(l_sil, l_smooth, iou, max overflow) of all B frames.  "pallas" gives
     the fused raster's true hard mask and its overflow; "tiled" and
-    "dense" threshold the soft mask at 0.5 for the IoU and report 0."""
+    "dense" threshold the soft mask at 0.5 for the IoU and report 0.
+
+    With ``shard`` the B frames are this rank's, and each value is this
+    rank's term of the global one (the sum over the ranks is the global
+    value): the means divide by the global counts, and the smoothness pair
+    that straddles the previous rank reads that rank's last frame through
+    ``halo_prev``, whose backward returns the pair's gradient to it."""
     rots = G.rot6d_to_matrix(params["rot6d"])  # (B, 3, 3)
     verts_t = params["scale"].abs() * torch.einsum("vj,bjk->bvk", verts, rots) + params["trans"]
     s = cfg.crop_size
@@ -89,12 +106,19 @@ def _sil_and_smooth(params, verts, faces, K_rois, ref_masks, keep_masks, cfg: Jo
         hard = (sil > 0.5).float().detach()
         ov = torch.zeros((), dtype=torch.int32, device=vp.device)
     image = keep_masks * sil
-    # losses.py:66-78: squared residuals over the batch, normalized by
-    # keep.sum(), then by the number of frames.
-    l_sil = ((image - ref_masks) ** 2).sum() / keep_masks.sum() / verts_t.shape[0]
-    l_smooth = ((verts_t[1:] - verts_t[:-1]) ** 2).mean()  # losses.py:80-84
-    iou = batch_mask_iou(keep_masks * hard, ref_masks).mean()
-    return l_sil, l_smooth, iou, ov
+    iou = batch_mask_iou(keep_masks * hard, ref_masks)
+    if shard is None:
+        # losses.py:66-78: squared residuals over the batch, normalized by
+        # keep.sum(), then by the number of frames.
+        l_sil = ((image - ref_masks) ** 2).sum() / keep_masks.sum() / verts_t.shape[0]
+        l_smooth = ((verts_t[1:] - verts_t[:-1]) ** 2).mean()  # losses.py:80-84
+        return l_sil, l_smooth, iou.mean(), ov
+    l_sil = ((image - ref_masks) ** 2).sum() / shard.keep_sum / shard.n_frames
+    prev = PM.halo_prev(verts_t, shard.mesh, "frames")
+    has_prev = float(PM.axis_index(shard.mesh, "frames") > 0)
+    sq = ((verts_t[1:] - verts_t[:-1]) ** 2).sum() + has_prev * ((verts_t[0] - prev) ** 2).sum()
+    l_smooth = sq / ((shard.n_frames - 1) * verts_t[0].numel())
+    return l_sil, l_smooth, iou.sum() / shard.n_frames, ov
 
 
 class _State(NamedTuple):
@@ -123,27 +147,37 @@ def _init_state(rot_init_row: Tensor, trans_init: Tensor, cfg: JointConfig) -> _
 
 
 def _joint_launch(
-    state: _State, n_iters: int, verts, faces, K_rois, ref_masks, keep_masks, cfg: JointConfig
+    state: _State, n_iters: int, verts, faces, K_rois, ref_masks, keep_masks, cfg: JointConfig,
+    shard: _FrameShard | None = None,
 ) -> Tensor:
     """``n_iters`` Adam steps on device tensors, updating ``state`` in
     place.  Returns the steps' history as a (n_iters, 5) device tensor (the
     columns in HISTORY_KEYS order), each row taken before its step's
-    update; nothing is read to the host."""
+    update; nothing is read to the host.  With ``shard`` the rows are
+    reduced over the ranks once, at the end (sums, and the overflow's
+    maximum)."""
     rows = []
     for _ in range(n_iters):
         l_sil, l_smooth, iou, ov = _sil_and_smooth(
-            state.params, verts, faces, K_rois, ref_masks, keep_masks, cfg
+            state.params, verts, faces, K_rois, ref_masks, keep_masks, cfg, shard
         )
         total = cfg.lw_sil_obj * l_sil + cfg.lw_smooth_obj * l_smooth
         state.opt.zero_grad(set_to_none=True)
         total.backward()
+        scale = state.params["scale"]
+        if shard is not None and scale.grad is not None:  # one scale for every frame
+            scale.grad = PM.all_reduce(scale.grad, shard.mesh, "frames")
         state.opt.step()
         rows.append(torch.stack([
             total.detach(), l_sil.detach(), l_smooth.detach(), iou.detach(), ov.float(),
         ]))
     if not rows:
         return torch.zeros((0, len(HISTORY_KEYS)), device=verts.device)
-    return torch.stack(rows)
+    hist = torch.stack(rows)
+    if shard is None:
+        return hist
+    return torch.cat([PM.all_reduce(hist[:, :4], shard.mesh, "frames"),
+                      PM.all_reduce(hist[:, 4:], shard.mesh, "frames", op="max")], dim=1)
 
 
 def joint_optimize(
@@ -156,6 +190,7 @@ def joint_optimize(
     cfg: JointConfig = JointConfig(),
     iters_per_launch: int = 50,
     device: str | torch.device | None = None,
+    frame_mesh=None,
 ) -> JointResult:
     """Stage-2 joint optimization.
 
@@ -169,8 +204,15 @@ def joint_optimize(
         are read from the device once per chunk.
       device: None = the CUDA card (raises without one); "cpu" runs the
         kernels' plain versions.
+      frame_mesh: a ``parallel.mesh`` mesh whose ``"frames"`` axis shards
+        the frames: the frame-axis arguments are this rank's contiguous shards
+        (``mesh.shard_leading``), the mesh replicated.  Each rank steps its
+        own frames (Adam is per element); the losses are global means, the
+        smoothness term reaches across ranks through a one-frame halo, and
+        the history is the global one on every rank.
 
-    Returns: JointResult; a nonzero overflow in any step warns.
+    Returns: JointResult (this rank's frames when sharded); a nonzero
+    overflow in any step warns.
     """
     dev = resolve_device(device)
 
@@ -182,12 +224,19 @@ def joint_optimize(
     ref_masks = (target_masks > 0).float()
     keep_masks = (target_masks >= 0).float()
     state = _init_state(put(rot_init_row), put(trans_init), cfg)
+    shard = None
+    if frame_mesh is not None:
+        counts = PM.all_reduce(torch.stack([
+            torch.tensor(float(keep_masks.shape[0]), device=dev), keep_masks.sum()]),
+            frame_mesh, "frames")
+        shard = _FrameShard(frame_mesh, int(counts[0]), counts[1])
     total = cfg.num_iterations
     chunk = max(min(iters_per_launch, total), 1)
     hists = []
     for done in range(0, total, chunk):
         h = _joint_launch(
-            state, min(chunk, total - done), verts, faces, K_rois, ref_masks, keep_masks, cfg
+            state, min(chunk, total - done), verts, faces, K_rois, ref_masks, keep_masks, cfg,
+            shard,
         )
         hists.append(h.cpu())  # one read per chunk
     hist = torch.cat(hists) if hists else torch.zeros((0, len(HISTORY_KEYS)))

@@ -17,8 +17,10 @@ Two refine modes (system.parallel_refine):
     the next frame's gate, as the reference does (pose_initializtion.py:
     404-457); it refines the single gate pick.
 
-Not ported yet, and raising rather than skipped: sharding over several
-cards (``system.devices > 1``).
+Several cards (``system.devices``, one process a card under
+``torch.distributed``): as in the JAX package, only the prior scoring is
+sharded, over the "views" ranks (priors._score_views); every other phase
+runs identically on every rank, and rank 0 alone writes the artifacts.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from ..models import dino as dino_mod
 from ..ops import rasterize as rz
 from ..ops.roi_align import crop_mask_bool_np, roi_align_exact_np
 from ..ops.rasterize_tiled import max_active_tiles_load, max_tile_load
+from ..parallel import mesh as PM
 from ..utils import camera as cam
 from ..utils import geometry as G
 from ..utils.device import resolve_device
@@ -188,14 +191,13 @@ def _mesh_arrays(mesh: MeshData, dev: torch.device) -> RF.MeshArrays:
     )
 
 
-def _check_ported(sysc: dict[str, Any]) -> None:
-    """Raise on the options whose slices are not ported yet."""
-    n_dev = sysc.get("devices")
-    if n_dev is not None and int(n_dev) > 1:
-        raise NotImplementedError(
-            "system.devices > 1 (sharding over several cards) is not ported to"
-            " dynhor_tpu_torch yet (ROADMAP queue 1, item 10); use None or 1"
-        )
+def view_devices(sysc: dict[str, Any]) -> int:
+    """The ranks the prior scoring shards its views over: the world size
+    when ``system.devices`` is unset, else the smaller of the two (one in a
+    single process, as the JAX package is on a one-chip host)."""
+    n_world = PM.world()[1]
+    n_cfg = sysc.get("devices")
+    return n_world if n_cfg is None else min(int(n_cfg), n_world)
 
 
 def _counted_refine_cap(
@@ -251,7 +253,6 @@ def track_sequence(
         kernels' plain versions.
     """
     sysc = config["system"]
-    _check_ported(sysc)
     dev = resolve_device(device)
     prof = profiler or Profiler(enabled=bool(sysc.get("profile", True)), device=dev)
     s = int(sysc["crop_size"])
@@ -300,6 +301,12 @@ def track_sequence(
         prior_cfg, float(P.mesh_norm_radius(mesh_arrays.verts)),
         float(prior_cfg.distance_scale * radius),
     )
+    # Shard the view axis when several ranks run (every rank makes the
+    # mesh: its groups are made collectively).
+    n_dev = view_devices(sysc)
+    view_mesh = PM.make_mesh(n_dev, "views") if n_dev > 1 else None
+    if view_mesh is not None and not view_mesh.is_member:
+        view_mesh = None
     # Multi-hypothesis init (num_initializations; the reference plumbs it
     # and never enables it, pose_initializtion.py:258,390): with K > 1 the
     # scoring also returns the silhouette-IoU channel that seeds the extra
@@ -320,6 +327,7 @@ def track_sequence(
                 prescreen_edge=int(ps.get("edge", 112)),
                 prescreen_scale=int(ps.get("scale", 2)),
                 topk=int(ps.get("topk", 24)), device=dev, with_sil=with_sil,
+                view_mesh=view_mesh,
             )
         else:
             out = P.prior_scores_batched(
@@ -327,6 +335,7 @@ def track_sequence(
                 host_batch=int(pc.get("host_batch", 1000)), device=dev,
                 with_sil=with_sil,
                 sil_masks=P.frame_sil_masks(target_masks) if with_sil else None,
+                view_mesh=view_mesh,
             )
         scores, sil_scores = out if with_sil else (out, None)
 
@@ -559,20 +568,26 @@ def run_from_config(
     mesh = load_mesh(data_info["obj_path"], bool(data_info.get("normalize_mesh", True)))
     print(f"[profile] host preprocessing: {_time.time() - t0:.2f}s", flush=True)
 
+    # Under several ranks every rank computes the same poses; rank 0 alone
+    # writes the experiment directory.
+    writer = PM.world()[0] == 0
     exp_dir = experiment_dir(config, exps_root)
-    os.makedirs(exp_dir, exist_ok=True)
-    if config.get("_config_path"):
-        copy_config(exp_dir, config["_config_path"])
-    board = Board(exp_dir)
+    board = None
+    if writer:
+        os.makedirs(exp_dir, exist_ok=True)
+        if config.get("_config_path"):
+            copy_config(exp_dir, config["_config_path"])
+        board = Board(exp_dir)
 
     result = track_sequence(config, seq, ann, mesh, board=board, device=dev)
     t0 = _time.time()
     result = maybe_vote_outliers(config, seq, ann, mesh, result, board, device=dev)
     print(f"[profile] outlier-voting: {_time.time() - t0:.2f}s", flush=True)
-    save_pose_npzs(
-        exp_dir, seq.frame_ids, result.rotations_row, result.translations, result.K
-    )
-    board.close()
+    if writer:
+        save_pose_npzs(
+            exp_dir, seq.frame_ids, result.rotations_row, result.translations, result.K
+        )
+        board.close()
     return result
 
 

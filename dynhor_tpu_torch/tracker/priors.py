@@ -37,6 +37,7 @@ from ..ops.rasterize_tiled import max_tile_load
 from ..ops.resize import resize_nearest
 from ..ops.roi_align import crop_and_resize
 from ..ops.shading import default_lights, phong_shade
+from ..parallel import mesh as PM
 from ..utils import bbox as bboxu
 from ..utils import geometry as G
 from ..utils.device import resolve_device
@@ -329,6 +330,42 @@ def _place_params(dino_params, dtype: str, dev):
     )
 
 
+def _score_views(dino_params, dino_cfg, verts, faces, face_uvs, texture, view_rotations,
+                 gt_feats, cos_masks, cfg: PriorConfig, window: int, with_sil: bool,
+                 sil_masks, view_mesh):
+    """``prior_scores_and_rotations`` of these views.  With ``view_mesh``,
+    each rank renders (K3) and scores its contiguous slice of every chunk
+    of ``cfg.view_chunk`` views, and the (F, N) matrices are gathered by a
+    sum over the "views" ranks into which each wrote its columns (exact:
+    the other ranks add zeros); the overflow is the ranks' maximum.  So
+    every rank holds the whole result, as one process computes it."""
+    if view_mesh is None:
+        return prior_scores_and_rotations(
+            dino_params, dino_cfg, verts, faces, face_uvs, texture, view_rotations,
+            gt_feats, cos_masks, cfg, window, with_sil, sil_masks,
+        )
+    index, size = PM.axis_index(view_mesh, "views"), PM.axis_size(view_mesh, "views")
+    n = view_rotations.shape[0]
+    dev = view_rotations.device
+    buf = torch.zeros((2 if with_sil else 1, gt_feats.shape[0], n), device=dev)
+    ov = torch.zeros((), dtype=torch.int32, device=dev)
+    for c in range(0, n, cfg.view_chunk):
+        per = -(-min(cfg.view_chunk, n - c) // size)
+        lo, hi = c + index * per, min(c + cfg.view_chunk, n, c + (index + 1) * per)
+        if lo >= hi:
+            continue
+        *mats, ov_c = prior_scores_and_rotations(
+            dino_params, dino_cfg, verts, faces, face_uvs, texture, view_rotations[lo:hi],
+            gt_feats, cos_masks, dataclasses.replace(cfg, view_chunk=hi - lo), window,
+            with_sil, sil_masks,
+        )
+        for j, m in enumerate(mats):
+            buf[j, :, lo:hi] = m
+        ov = torch.maximum(ov, ov_c)
+    buf = PM.all_reduce(buf, view_mesh, "views")
+    return (*buf, PM.all_reduce(ov, view_mesh, "views", op="max"))
+
+
 def prior_scores_batched(
     dino_params,
     dino_cfg,
@@ -345,6 +382,7 @@ def prior_scores_batched(
     device: str | torch.device | None = None,
     with_sil: bool = False,
     sil_masks=None,
+    view_mesh=None,
 ):
     """``prior_scores_and_rotations`` over all views in host batches of
     ``host_batch`` views, at a per-tile cap counted for these views.
@@ -355,10 +393,12 @@ def prior_scores_batched(
 
     Args: as ``prior_scores_and_rotations``; tensors or arrays on any
     device, moved to ``device`` (None = the CUDA card; "cpu" runs the
-    kernels' plain versions).
+    kernels' plain versions).  ``view_mesh``: a ``parallel.mesh`` mesh with
+    a "views" axis; each rank then renders and scores its slice of every
+    chunk, every input replicated (``_score_views``).
 
     Returns (F, N) scores on ``device``, or (scores, sil scores) when
-    with_sil.
+    with_sil; the whole matrices on every rank when sharded.
     """
     dev = resolve_device(device)
     verts, faces, face_uvs, texture, view_rotations = _place(
@@ -384,10 +424,10 @@ def prior_scores_batched(
         outs = []
         max_ov = 0
         for i in range(0, n, host_batch):
-            *mats, ov = prior_scores_and_rotations(
+            *mats, ov = _score_views(
                 dino_params, dino_cfg, verts, faces, face_uvs, texture,
                 view_rotations[i : i + host_batch], gt_feats, cos_masks, cfg_l, window,
-                with_sil, sil_masks,
+                with_sil, sil_masks, view_mesh,
             )
             outs.append(mats)
             max_ov = max(max_ov, int(ov))
@@ -430,6 +470,7 @@ def prior_scores_two_stage(
     topk: int = 24,
     device: str | torch.device | None = None,
     with_sil: bool = False,
+    view_mesh=None,
 ):
     """Two-stage prior retrieval: a cheap prescreen of ALL views, then a
     full-resolution rescore of the union of each frame's top ``topk``.
@@ -452,6 +493,9 @@ def prior_scores_two_stage(
       with_sil: also return the (F, N) silhouette-IoU matrix, from the
         prescreen pass (the SIL_RES grid does not depend on the render's
         resolution).
+      view_mesh: shards both stages' views over its "views" ranks
+        (``prior_scores_batched``); the gathered scores are ranked, so
+        every rank makes the same choices.
 
     Returns (F, N) scores on the full-resolution scale, on ``device`` (and
     the sil scores if with_sil).
@@ -468,7 +512,7 @@ def prior_scores_two_stage(
     if n <= 2 * topk * max(f_frames, 1) or n <= 4 * topk:
         return prior_scores_batched(
             *common, view_rotations, gt_feats, cos_masks, cfg, window, host_batch, dev,
-            with_sil=with_sil, sil_masks=sil_masks,
+            with_sil=with_sil, sil_masks=sil_masks, view_mesh=view_mesh,
         )
 
     # ---- stage A: low-resolution prescreen of all N views ----
@@ -491,7 +535,7 @@ def prior_scores_two_stage(
     out_lo = prior_scores_batched(
         dino_params, dino_cfg_lo, verts, faces, face_uvs, texture, view_rotations,
         gt_feats_lo, cos_masks_lo, cfg_lo, window_lo, host_batch, dev,
-        with_sil=with_sil, sil_masks=sil_masks,
+        with_sil=with_sil, sil_masks=sil_masks, view_mesh=view_mesh,
     )
     scores_lo, sil_scores = out_lo if with_sil else (out_lo, None)
     scores_lo_np = scores_lo.cpu().numpy()
@@ -502,7 +546,7 @@ def prior_scores_two_stage(
     idx = np.unique(top_idx.reshape(-1))
     rots = torch.as_tensor(view_rotations)[torch.as_tensor(idx)]
     sub = prior_scores_batched(
-        *common, rots, gt_feats, cos_masks, cfg, window, host_batch, dev
+        *common, rots, gt_feats, cos_masks, cfg, window, host_batch, dev, view_mesh=view_mesh
     )
     sub_np = sub.cpu().numpy()  # (F, |idx|)
 

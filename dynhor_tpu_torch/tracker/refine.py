@@ -38,6 +38,7 @@ from ..ops.rasterize_tiled import rasterize_tiled, soft_silhouette_tiled
 from ..ops.resize import resize_nearest
 from ..ops.shading import TextureSet, fine_lights, phong_shade, phong_shade_tiles
 from ..ops.silhouette import soft_silhouette
+from ..parallel import mesh as PM
 from ..utils import camera as cam
 from ..utils import geometry as G
 from ..utils.device import resolve_device
@@ -344,6 +345,7 @@ def refine_poses(
     carry_state: RefineState | None = None,
     return_state: bool = False,
     device: str | torch.device | None = None,
+    frame_mesh=None,
 ):
     """Refine all frames' poses, batched (independently parameterized).
 
@@ -361,6 +363,12 @@ def refine_poses(
       return_state: also return the RefineState at the end.
       device: None = the CUDA card (raises without one); "cpu" runs the
         kernels' plain versions.
+      frame_mesh: a ``parallel.mesh`` mesh whose ``"frames"`` axis shards
+        the frames: the frame-axis inputs are this rank's shards
+        (``mesh.shard_leading``) and the mesh and ViT replicated.  Frames
+        are independent (their own parameters and Adam moments, a summed
+        loss), so each rank refines its own; the result holds this rank's
+        frames and the overflow is the largest of every rank.
 
     Returns: RefineResult (row-convention 6D rotations) [, RefineState if
     return_state].  The overflow is read once, after the loop, and a
@@ -374,6 +382,7 @@ def refine_poses(
         torch.as_tensor(trans_init, dtype=torch.float32, device=dev), dino_params, dino_cfg,
         cfg, carry_state,
     )
+    max_ov = PM.all_reduce(max_ov, frame_mesh, "frames", op="max")
     max_overflow = int(max_ov)
     warn_overflow(max_overflow)
     result = result._replace(max_overflow=max_overflow)

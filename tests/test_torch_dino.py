@@ -94,3 +94,33 @@ def test_presets_and_loader_without_a_checkpoint():
     assert not torch.equal(p1["pos_embed"], p3["pos_embed"])
     with pytest.raises(FileNotFoundError):
         TD.load_params("/nonexistent/dino.npz", cfg)
+
+
+# The port's ViT against a randomly initialised transformers Dinov2Model
+# (built from a config, nothing downloaded), through convert_torch_state_dict:
+# the counterparts of tests/test_dino.py's, at their tolerances.
+@pytest.fixture(scope="module")
+def hf_model():
+    from transformers import Dinov2Config, Dinov2Model
+
+    cfg = Dinov2Config(hidden_size=64, num_hidden_layers=3, num_attention_heads=4,
+                       intermediate_size=256, patch_size=14, image_size=224, layerscale_value=0.7)
+    torch.manual_seed(0)
+    return Dinov2Model(cfg).eval()
+
+
+@pytest.mark.parametrize("size,seed,atol", [(224, 0, 2e-4), (280, 1, 5e-3)],
+                         ids=["native", "interpolated"])
+def test_matches_transformers_dinov2(hf_model, size, seed, atol):
+    """At 224 the position grid is the checkpoint's (16²); at 280 (20²) the
+    bicubic position-embedding interpolation runs."""
+    cfg = TD.DinoConfig(patch_size=14, embed_dim=64, depth=3, num_heads=4, pos_grid=16,
+                        smaller_edge_size=224)
+    params, cfg = TD.convert_torch_state_dict(hf_model.state_dict(), cfg)
+    assert (cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.pos_grid) == (64, 3, 4, 16)
+    img = np.random.RandomState(seed).rand(2 if size == 224 else 1, 3, size, size)
+    img = torch.from_numpy(img.astype(np.float32))
+    with torch.no_grad():
+        want = hf_model(img).last_hidden_state[:, 1:].numpy()
+        got = TD.forward_tokens(params, img, cfg).numpy()
+    np.testing.assert_allclose(got, want, atol=atol)

@@ -286,7 +286,8 @@ def test_run_multi_matches_jax(demo_dir, tmp_path, monkeypatch, capsys):  # noqa
 
 def test_run_multi_needs_a_card_and_one_device(demo_dir, tmp_path, monkeypatch):  # noqa: F811
     """Without a card and without ``--device`` the entry point raises before
-    any work; ``system.devices: 2`` raises (sharding is not ported yet); and
+    any work; ``system.devices: 2`` in one process shards over one device
+    (tests/test_torch_parallel.py runs it over ranks); and
     ``refine_poses_multi`` with no device needs a card."""
     import yaml
 
@@ -300,10 +301,10 @@ def test_run_multi_needs_a_card_and_one_device(demo_dir, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TRM.main(["--config_paths", str(path), "--exps_root", str(exps)])
     assert not exps.exists()
+    from dynhor_tpu_torch.tracker import pipeline as TPL
+
     cfg["system"]["devices"] = 2
-    path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="devices > 1"):
-        TRM.main(["--config_paths", str(path), "--exps_root", str(exps), "--device", "cpu"])
+    assert TPL.view_devices(cfg["system"]) == 1
     batch = TMS.build_batch([_tmesh(_box_mesh())], [_ttargets(_targets_for(_box_mesh(), 1, 0)[0])],
                             device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -9,9 +9,16 @@ native extraction (the same source, so the same bytes out),
 ``extract_mesh_from_field`` (the port's SDF batches in torch, the JAX
 package's in numpy).  The copy is byte for byte the JAX package's source;
 a source g++ refuses raises with g++'s message (no numpy fallback).
+
+The JAX package's native library is built for this module alone, into its
+own temporary directory (``jax_native``): its loader compiles straight onto
+one shared path, which the suite's parallel workers would otherwise write
+and load at once, and a worker that loads a half-written file keeps
+``None`` for the rest of the process.
 """
 import filecmp
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -39,6 +46,30 @@ def _lumpy_grid(n=28):
     return s.astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's ``marching.cpp`` compiled into this module's own
+    directory, and its loader pointed there (``_LIB``, with ``_lib`` and
+    ``_tried`` reset) until the module ends."""
+    lib = tmp_path_factory.mktemp("jax_native") / "libmarching.so"
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", JN._SRC, "-o", str(lib)],
+                   check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JN, "_LIB", str(lib))
+        mp.setattr(JN, "_lib", None)
+        mp.setattr(JN, "_tried", False)
+        assert JN.load_marching() is not None, f"the JAX package's library built at {lib} loads"
+        yield str(lib)
+
+
+def jax_native_marching(sdf, origin, spacing):
+    """``JN.marching_tetrahedra_native``, which returns None when its
+    library did not load."""
+    out = JN.marching_tetrahedra_native(sdf, origin, spacing)
+    assert out is not None, f"the JAX package's native library ({JN._LIB}) did not load"
+    return out
+
+
 GRIDS = {"sphere40": (_sphere_grid(40), 2 / 39), "sphere17": (_sphere_grid(17, 0.3), 2 / 16),
          "lumpy": (_lumpy_grid(), 2 / 27)}
 
@@ -58,7 +89,7 @@ def test_numpy_and_native_marching_equal_jax(grid):
     np.testing.assert_array_equal(f_np, jf)
     assert v_np.dtype == jv.dtype and f_np.dtype == jf.dtype
     v_cc, f_cc = TN.marching_tetrahedra_native(sdf, (-1, -1, -1), spacing)
-    jv_cc, jf_cc = JN.marching_tetrahedra_native(sdf, (-1, -1, -1), spacing)
+    jv_cc, jf_cc = jax_native_marching(sdf, (-1, -1, -1), spacing)
     np.testing.assert_array_equal(v_cc, jv_cc)
     np.testing.assert_array_equal(f_cc, jf_cc)
     assert len(v_cc) == len(v_np) > 0 and len(f_cc) == len(f_np)
@@ -97,6 +128,8 @@ def test_extract_mesh_from_field_equals_jax(use_native):
 
     tv, tf = TE.extract_mesh_from_field(t_eval, resolution=30, bound=0.8, batch=4096,
                                         use_native=use_native, device="cpu")
+    if use_native:  # the JAX side falls back to numpy when its library is missing
+        assert JN.load_marching() is not None, f"the JAX package's library ({JN._LIB}) loads"
     jv, jf = JE.extract_mesh_from_field(j_eval, resolution=30, bound=0.8, batch=4096,
                                         use_native=use_native)
     np.testing.assert_array_equal(tv, jv)

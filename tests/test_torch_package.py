@@ -27,7 +27,8 @@ run_slice = {"dynhor_tpu_torch." + m for m in (
     "run", "tracker.pipeline", "tracker.outliers", "io.config", "io.artifacts", "io.ingest",
     "neus.data", "utils.profiling", "utils.constants", "tools.make_demo_data", "vis",
     "visualizer", "run_multi", "parallel.multiseq", "neus.fields", "neus.rendering",
-    "neus.trainer", "neus.extract", "neus.draws", "native", "recon", "tools.bench_neus")}
+    "neus.trainer", "neus.extract", "neus.draws", "native", "recon", "tools.bench_neus",
+    "parallel.mesh", "parallel.multihost")}
 assert run_slice <= set(names), sorted(run_slice - set(names))
 print("ok", len(names))
 """
