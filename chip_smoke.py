@@ -53,13 +53,17 @@ Phases; any failure exits non-zero.
    at 518², bf16, 8 frames, 10 steps, once with the written-out attention
    (``attn_impl="xla"``: no K5 launch) and once with ``attn_impl="flash"``
    (each K5 kernel once per layer and step, the forward twice under the
-   default ``dino_remat="frozen"``, which recomputes each block in the
-   backward); K1 and K2 must launch exactly once per step.  Then
-   ``dino_dtype="float32"`` with ``"flash"`` for 2 steps: the f32 K5
-   kernels as many times, the bf16 ones never.  Then ``"xla"`` with
-   ``dino_remat`` False and "frozen" in turns: ms/step, peak memory, the
-   final poses' difference, and one step's loss and gradients held to each
-   other (no further apart than two runs of one setting).
+   default ``dino_remat="frozen"``, which keeps each block's input, qkv,
+   mid residual and fc1 output and recomputes the layer norms and the
+   attention core in the backward); K1 and K2 must launch exactly once per
+   step.  Then ``dino_dtype="float32"`` with ``"flash"`` for 2 steps: the
+   f32 K5 kernels as many times, the bf16 ones never.  Then the
+   recomputation sweep, for ``"xla"`` and for ``"flash"``: ``dino_remat``
+   False, True (block inputs only), "dots" (every matmul output) and
+   "frozen" in turns: ms/step, peak memory, K5 launches, a profiler
+   window's device busy time and idle share, the final poses' difference,
+   and one step's loss and gradients held to False's (no further apart than
+   two runs of one setting).
    Then the same entry point on a small scene, on the card and on the CPU
    (plain versions), must agree, for both attentions and for f32 "flash".
 3b. Joint optimization at full width: ``joint_optimize`` at the pipeline's
@@ -169,6 +173,20 @@ Phases; any failure exits non-zero.
    writing; each rank's K1/K2/K3 launches and wall seconds per case ("two
    ranks sharing one card", not a scaling figure); a failed rank fails the
    phase.
+11. The tools (``python -m dynhor_tpu_torch.tools.<name>``, each through its
+   ``main`` or ``run``) at full width: ``ablate_oracle_init`` and
+   ``ablate_multihyp`` on phase 8's kettle at BASELINE.md's matched
+   settings (50 refine and 100 joint steps, 500 views; K 4, tournament 25,
+   one propagation round), the oracle arm's selected views the GT-nearest
+   prior views, its joint IoU at least 0.90 and its mean joint rotation
+   error at most 5 degrees; ``eval_poses`` on phase 6's artifacts, equal to
+   phase 6's own angles within 1e-4 degrees; ``ab_prescreen`` at 1000
+   views and ``ablate_fine_edge`` at edges 518 and 252 on the shoes (depth
+   cut); each probe at its own default shapes (the ViT probe under both
+   attentions); ``warm_cache`` into a fresh
+   build directory; ``weak_scaling`` at one NCCL rank.  Every tool returns
+   finite numbers; the quality numbers (joint IoU, rotation errors against
+   GT) are printed.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -241,9 +259,9 @@ RUN_MOVED = 5
 # Hypotheses per frame of phase 7: the gate pick, its two flips and one view
 # by silhouette IoU, so every part of build_hypotheses runs.
 MULTIHYP_K = 4
-# One fine step's loss and gradients with dino_remat False and "frozen" (the
-# same computation, recomputed) differ by no more than two runs of one
-# setting do, or than this share of their largest value.  In bf16 on an H100
+# One fine step's loss and gradients under each dino_remat policy and under
+# False (the same computation, part of it recomputed) differ by no more than
+# two runs of one setting do, or than this share of their largest value.  In bf16 on an H100
 # 80GB HBM3 the recomputed step differed by 6.07e-5 of 1.13 (repeats of one
 # setting by 1.99e-5: atomics), far below one bf16 rounding (2^-8).  The
 # card's step is not bit-reproducible, and 10 chaotic bf16 steps spread that
@@ -333,7 +351,9 @@ def check_k5_launches(launches: dict, fwd: int, bwd: int, where: str,
 def k5_per_step(dcfg, cfg) -> tuple[int, int]:
     """(forward, backward) launches of each K5 kernel in one fine refine step
     under a kernel attention: once per layer, and the forward once more per
-    layer when ``dino_remat`` recomputes the blocks in the backward."""
+    layer under every ``dino_remat`` policy but False: True reruns each
+    block, "frozen" the attention core, and "dots" everything but the
+    matmuls, which K5 is not."""
     if dcfg.attn_impl == "xla":
         return 0, 0
     return dcfg.depth * (2 if cfg.dino_remat else 1), dcfg.depth
@@ -1971,8 +1991,11 @@ def phase_run(dev, card: str, kernel_rows: list[dict], tmp: str) -> dict:
     gt = np.load(os.path.join(seq_dir, "gt_poses.npz"))
     from dynhor_tpu_torch.utils import geometry as G
 
-    ang = G.rotation_angle_difference(
-        torch.as_tensor(result.rotations_row), torch.as_tensor(gt["R"]).transpose(-1, -2))
+    # Object-to-camera (column) rotations against GT's, a frame at a time, as
+    # eval_poses reads the saved artifacts.
+    ang = torch.cat([G.rotation_angle_difference(
+        torch.as_tensor(np.ascontiguousarray(r.T))[None], torch.as_tensor(g)[None])
+        for r, g in zip(result.rotations_row, gt["R"])])
     print(
         f"[run] {route}: {t_run:.3f} s wall; phase seconds {secs}; scoring stages "
         f"{n_lo} views in {t_lo:.3f} s, {n_hi} in {t_hi:.3f} s; selected views "
@@ -1988,7 +2011,7 @@ def phase_run(dev, card: str, kernel_rows: list[dict], tmp: str) -> dict:
             row["launches"] = launches[key]
     phase_rejoint(dev, cfg_path, seq_dir, result)
     return {"seq_dir": seq_dir, "exps": exps, "user": user, "k3": launches["K3"],
-            "exp": exp}
+            "exp": exp, "rot_deg": ang.cpu().numpy()}
 
 
 def phase_rejoint(dev, cfg_path: str, seq_dir: str, result) -> None:
@@ -2897,15 +2920,24 @@ def phase_recon_small(dev) -> None:
     check(all(e <= NEUS_TOL for e in errs.values()), f"card and CPU renders differ: {errs}")
 
 
-def phase_remat(dev, sc, card: str, dcfg) -> None:
-    """Phase 3's ``dino_remat`` line: the fine refine at full width (8
-    frames, STEPS steps, ``dcfg.attn_impl``, bf16) with ``dino_remat``
-    False and "frozen" (per-block recomputation, the default) in turns
-    (False, frozen, frozen, False): ms/step and peak memory of each, and
-    the largest difference of the final rot6d and translations.  One step's
-    loss and d(rot6d, trans) under each setting, twice, are held to each
-    other (at most the repeats' own difference, or REMAT_TOL of the
-    largest)."""
+REMAT_POLICIES = (False, True, "dots", "frozen")
+
+
+def phase_remat(dev, sc, card: str, dcfg) -> dict:
+    """Phase 3's recomputation sweep: the fine refine at full width (8
+    frames, STEPS steps, ``dcfg.attn_impl``, bf16) under each ``dino_remat``
+    policy in turns (False, True, "dots", "frozen", then backwards): ms/step,
+    peak memory and K5 launches of each run (each K5 kernel once per layer
+    and step; the forward again per layer under every policy that
+    recomputes); a profiler window of each policy (device busy ms/step,
+    kernels only, and the idle share of its unprofiled step); the largest
+    difference of the final poses from False's.  One step's loss and
+    d(rot6d, trans) under each policy, three times, are held to False's (at
+    most the repeats' own difference, or REMAT_TOL of the largest).  Returns
+    {policy: {"ms", "peak_gib", "busy_ms", "idle"}} (ms and peak the
+    medians of the two runs)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from dynhor_tpu_torch.models import dino as D
     from dynhor_tpu_torch.tracker import refine as RF
     from dynhor_tpu_torch.utils import geometry as G
@@ -2918,50 +2950,73 @@ def phase_remat(dev, sc, card: str, dcfg) -> None:
     gt = torch.randn((FRAMES, dcfg.feat_size**2, dcfg.embed_dim), generator=gen)
     gt = (gt / torch.linalg.norm(gt, dim=-1, keepdim=True)).to(dev)
     targets = RF.FrameTargets(masks, gt, K.expand(FRAMES, 3, 3))
-    runs = {False: [], "frozen": []}
-    for remat in (False, "frozen", "frozen", False):
-        cfg = RF.RefineConfig(num_iterations=STEPS, crop_size=CROP, mode="fine",
-                              max_faces_per_tile=cap, max_active_tiles=act_cap,
-                              dino_remat=remat)
+
+    def config(remat, steps=STEPS):
+        return RF.RefineConfig(num_iterations=steps, crop_size=CROP, mode="fine",
+                               max_faces_per_tile=cap, max_active_tiles=act_cap,
+                               dino_remat=remat)
+
+    tag = f"[remat {dcfg.attn_impl}]"
+    runs = {p: [] for p in REMAT_POLICIES}
+    for remat in REMAT_POLICIES + REMAT_POLICIES[::-1]:
+        cfg = config(remat)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_launches()
         res, t = wall(lambda: RF.refine_poses(mesh, targets, rot, trans * 1.0001, dparams,
                                               dcfg, cfg, device=dev))
-        check(bool(torch.isfinite(res.final_loss).all()), f"remat {remat}: loss not finite")
-        runs[remat].append((t / STEPS * 1e3, torch.cuda.max_memory_allocated() / 2**30, res))
+        check(bool(torch.isfinite(res.final_loss).all()), f"{tag} {remat}: loss not finite")
+        fwd, bwd = k5_per_step(dcfg, cfg)
+        launches = read_launches()
+        check_k5_launches(launches, fwd * STEPS, bwd * STEPS, f"{tag} dino_remat {remat!r}")
+        runs[remat].append((t / STEPS * 1e3, torch.cuda.max_memory_allocated() / 2**30, res,
+                            launches["K5 fwd"]))
 
     def diff(a, b):
         return max(float((a.rot6d - b.rot6d).abs().max()),
                    float((a.translations - b.translations).abs().max()))
 
-    poses = diff(runs[False][0][2], runs["frozen"][0][2])
-    poses_rep = max(diff(runs[False][0][2], runs[False][1][2]),
-                    diff(runs["frozen"][0][2], runs["frozen"][1][2]))
     bf16 = D.map_params(dparams, lambda a: a.to(torch.bfloat16))
 
     def one_step(remat):
-        cfg = RF.RefineConfig(crop_size=CROP, mode="fine", max_faces_per_tile=cap,
-                              max_active_tiles=act_cap, dino_remat=remat)
         r6 = G.matrix_to_rot6d(rot).clone().requires_grad_(True)
         tr = trans.reshape(FRAMES, 1, 3).clone().requires_grad_(True)
-        loss, _, _ = RF._frame_loss(r6, tr, mesh, targets, bf16, dcfg, cfg)
+        loss, _, _ = RF._frame_loss(r6, tr, mesh, targets, bf16, dcfg, config(remat, 1))
         loss.sum().backward()
         return torch.cat([loss.detach(), r6.grad.flatten(), tr.grad.flatten()])
 
-    g = {remat: [one_step(remat), one_step(remat)] for remat in (False, "frozen")}
-    across = float((g[False][0] - g["frozen"][0]).abs().max())
-    within = max(float((a - b).abs().max()) for a, b in g.values())
+    # Three runs of each policy: the card's step is not bit-reproducible, and
+    # the pairs of repeats give the spread the policies are held to.
+    g = {remat: [one_step(remat) for _ in range(3)] for remat in REMAT_POLICIES}
+    within = max(float((a - b).abs().max()) for runs_ in g.values()
+                 for i, a in enumerate(runs_) for b in runs_[i + 1:])
     scale = float(g[False][0].abs().max())
-    fmt = {k: [f"{ms:.2f} ms/step, {gib:.2f} GiB" for ms, gib, _ in v] for k, v in runs.items()}
-    print(f"[main {dcfg.attn_impl}] dino_remat False vs \"frozen\" in turns (False, frozen, "
-          f"frozen, False), {FRAMES} frames, {STEPS} steps: False {fmt[False]}, frozen "
-          f"{fmt['frozen']}; max abs difference of the final rot6d and translations between "
-          f"them {poses:.3g} (between repeats of one setting {poses_rep:.3g}); one step's loss "
-          f"and d(rot6d, trans) (largest {scale:.3g}): between them {across:.3g}, between "
-          f"repeats {within:.3g} — {card}", flush=True)
-    check(across <= max(within, REMAT_TOL * scale),
-          f"dino_remat changed one step by {across}, more than repeats differ ({within})")
-
+    out = {}
+    for remat in REMAT_POLICIES:
+        ms = float(np.median([r[0] for r in runs[remat]]))
+        steps = 3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            RF.refine_poses(mesh, targets, rot, trans, dparams, dcfg, config(remat, steps),
+                            device=dev)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / steps / 1e3
+        across = float((g[remat][0] - g[False][0]).abs().max())
+        out[remat] = {"ms": ms, "peak_gib": float(np.median([r[1] for r in runs[remat]])),
+                      "busy_ms": busy or None,
+                      "idle": max(0.0, 1.0 - busy / ms) if busy else None}
+        busy_text = (f"device busy {busy:.2f} ms/step, idle share {out[remat]['idle']:.3f}"
+                     if busy else "device busy: not measured (the profiler saw no kernels)")
+        print(f"{tag} dino_remat {remat!r}: "
+              f"{', '.join(f'{r[0]:.2f}' for r in runs[remat])} ms/step (in turns), peak "
+              f"{', '.join(f'{r[1]:.2f}' for r in runs[remat])} GiB, K5 forward launches "
+              f"{[r[3] for r in runs[remat]]}; {busy_text}; final poses against False's "
+              f"{diff(runs[remat][0][2], runs[False][0][2]):.3g}; one step's loss and "
+              f"d(rot6d, trans) against False's {across:.3g} (repeats of one policy differ "
+              f"by up to {within:.3g}, largest value {scale:.3g}) — {card}", flush=True)
+        check(across <= max(within, REMAT_TOL * scale),
+              f"{tag} dino_remat {remat!r} changed one step by {across}, more than repeats "
+              f"differ ({within})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3569,6 +3624,197 @@ def phase_shard(dev, card: str, tmp: str, run: dict, seqs: dict) -> None:
           f"of {RUN_FRAMES} pose files, config, board); rank 1 wrote nothing", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the tools at full width
+# ---------------------------------------------------------------------------
+
+# BASELINE.md:337-338's matched settings of the quality ablations.
+ABL_INIT, ABL_JOINT, ABL_VIEWS = 50, 100, 500
+ABL_K, ABL_TOURNAMENT, ABL_PROPAGATE = 4, 25, 1
+# ablate_fine_edge: two edges (518 = 1370 tokens, 252 = 325, a count off
+# K5's tiles), depth cut to fit the script's time.
+EDGES, EDGE_INIT, EDGE_JOINT, EDGE_VIEWS = (518, 252), 20, 40, 500
+# ab_prescreen at 1000 views; its refine and joint cut from the defaults'
+# 100 / 200 steps to fit the script's time (the comparison is of the views
+# selected, which the steps do not change).  At 1000 views and 12 frames the
+# default variant's top-48 falls back to one stage (the two-stage scoring
+# prescreens only above 2 x topk x frames = 1152 views), so the variant
+# prescreened is the top 24.
+PRESCREEN_VIEWS, PRESCREEN_INIT, PRESCREEN_JOINT = 1000, 10, 20
+PRESCREEN_VARIANT = "224:2:24"
+# The oracle arm's floor: the JAX package's oracle arm reached joint IoU
+# 0.9846 and 0.7 deg on its own kettle trajectory (BASELINE.md:245, a quality
+# figure taken on a TPU); a miss is a quality fault of the port.
+ORACLE_MIN_IOU, ORACLE_MAX_ROT = 0.90, 5.0
+EVAL_TOL = 1e-4  # eval_poses against phase 6's own angles, degrees
+
+
+def _finite(*values) -> bool:
+    return all(np.isfinite(np.asarray(v, np.float64)).all() for v in values)
+
+
+def phase_tools(dev, card: str, tmp: str, run: dict, seqs: dict) -> dict:
+    """Phase 11: the port's tools (``python -m dynhor_tpu_torch.tools.<name>``)
+    at full width on the card, each through its ``main`` or ``run``, with
+    K1-K3 (and K5 where the ViT runs "flash") on the tracking paths:
+
+    - ``ablate_oracle_init`` on phase 8's kettle (12 frames at 480x640, seed
+      0) at BASELINE.md's matched settings (50 refine and 100 joint steps,
+      500 views): the oracle arm's selected views are the GT-nearest prior
+      views, its joint IoU at least ORACLE_MIN_IOU and its mean joint
+      rotation error at most ORACLE_MAX_ROT degrees;
+    - ``ablate_multihyp`` there with K 4, tournament 25, one propagation
+      round, its K=4 arm only (``--skip-k1``): its K=1 arm is the oracle
+      tool's dino-gate arm, the same configuration;
+    - ``eval_poses`` on phase 6's artifacts against the twin's GT, equal to
+      phase 6's own angles within EVAL_TOL degrees;
+    - ``ab_prescreen`` at 1000 views, ``ablate_fine_edge`` at edges 518 and
+      252 on phase 6's shoes;
+    - each probe once at its own default shapes (the ViT probe under both
+      attentions);
+    - ``warm_cache`` into a fresh build directory (the kettle's pipeline
+      pass) and ``weak_scaling`` at one NCCL rank.
+
+    Every tool must return finite numbers.  Returns the quality numbers."""
+    import yaml
+
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.io.config import DEFAULTS
+    from dynhor_tpu_torch.tools import (ab_prescreen, ablate_fine_edge, ablate_multihyp,
+                                        ablate_oracle_init, eval_poses, probe_hash_breakdown,
+                                        probe_hash_step, probe_prior_stages,
+                                        probe_raster_stages, probe_step_breakdown,
+                                        probe_vit_fused, warm_cache, weak_scaling)
+    from dynhor_tpu_torch.tracker import priors as TP
+    from dynhor_tpu_torch.utils import geometry as G
+
+    def config(name, seq, system=None):
+        root, obj = seqs[seq]
+        path = os.path.join(tmp, f"tools_{name}.yaml")
+        with open(path, "w") as fh:
+            yaml.safe_dump({"seq_name": seq, "exp_name": f"tools_{name}", "system": system or {},
+                            "data_info": {"dataroot": root, "obj_path": os.path.abspath(obj)}}, fh)
+        return path
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out, t = wall(fn)
+        launches = {k: n for k, n in read_launches().items() if n}
+        print(f"[tools] {name}: {t:.1f} s, launches {launches} — {card}", flush=True)
+        return out, t, launches
+
+    kettle = config("kettle", "custom_kettle")
+    quality, secs = {}, {}
+
+    # -- ablate_oracle_init --
+    ora, secs["ablate_oracle_init"], la = timed("ablate_oracle_init", lambda: ablate_oracle_init.main(
+        ["--config", kettle, "--init-iters", str(ABL_INIT), "--joint-iters", str(ABL_JOINT),
+         "--views", str(ABL_VIEWS)]))
+    steps = 2 * (ABL_INIT + ABL_JOINT)
+    check(la.get("K1") == la.get("K2") == steps and la.get("K3", 0) > 0,
+          f"ablate_oracle_init: launches {la}, expected K1/K2 {steps} and K3")
+    gt_R = np.load(os.path.join(seqs["custom_kettle"][0], "gt_poses.npz"))["R"]
+    seed = int(DEFAULTS["system"]["prior"].get("seed", 0))
+    views = TP.prior_view_rotations(TP.PriorConfig(num_views=ABL_VIEWS),
+                                    torch.Generator().manual_seed(seed))
+    priors_row = views.to(dev).transpose(-1, -2)
+    gt_row = torch.as_tensor(gt_R, device=dev).transpose(-1, -2)
+    nearest = torch.argmin(G.rotation_angle_difference(priors_row[None, :], gt_row[:, None]), 1)
+    oracle = ora["oracle-init"]
+    check(np.array_equal(np.asarray(oracle["result"].selected_idx), nearest.cpu().numpy()),
+          f"oracle arm's views {oracle['result'].selected_idx} are not the GT-nearest "
+          f"{nearest.tolist()}")
+    for arm, r in ora.items():
+        check(_finite(r["iou"], r["init_rot_err"], r["joint_rot_err"]), f"oracle {arm}: not finite")
+        quality[("kettle", arm)] = r
+    check(oracle["iou"] >= ORACLE_MIN_IOU and float(np.mean(oracle["joint_rot_err"]))
+          <= ORACLE_MAX_ROT,
+          f"oracle arm: joint IoU {oracle['iou']:.4f} (floor {ORACLE_MIN_IOU}), mean joint "
+          f"rotation error {float(np.mean(oracle['joint_rot_err'])):.2f} deg (limit "
+          f"{ORACLE_MAX_ROT}): a quality fault of the port")
+
+    # -- ablate_multihyp, its K=4 arm --
+    mh, secs["ablate_multihyp"], lm = timed("ablate_multihyp", lambda: ablate_multihyp.main(
+        ["--config", kettle, "--k", str(ABL_K), "--init-iters", str(ABL_INIT), "--joint-iters",
+         str(ABL_JOINT), "--views", str(ABL_VIEWS), "--tournament", str(ABL_TOURNAMENT),
+         "--propagate-rounds", str(ABL_PROPAGATE), "--skip-k1"]))
+    arm = mh[f"multihyp-K{ABL_K}"]
+    check(_finite(arm["iou"], arm["init_rot_err"], arm["joint_rot_err"]), "multihyp: not finite")
+    quality[("kettle", f"multihyp-K{ABL_K}")] = arm
+    gate = ora["dino-gate"]
+    print(f"[tools] multi-hypothesis ablation (K=1 is the oracle tool's dino-gate arm): joint "
+          f"IoU K=1 {gate['iou']:.4f} -> K={ABL_K} {arm['iou']:.4f}; mean joint rotation error "
+          f"{float(np.mean(gate['joint_rot_err'])):.2f} -> "
+          f"{float(np.mean(arm['joint_rot_err'])):.2f} deg; wall {gate['wall']:.1f} -> "
+          f"{arm['wall']:.1f} s — {card}", flush=True)
+
+    # -- eval_poses on phase 6's artifacts --
+    ev, secs["eval_poses"], _ = timed("eval_poses", lambda: eval_poses.main(
+        ["--exp", run["exp"], "--gt", os.path.join(run["seq_dir"], "gt_poses.npz")]))
+    err = float(np.abs(ev["rot_deg"] - run["rot_deg"]).max())
+    check(_finite(ev["rot_deg"], ev["trans"]) and err <= EVAL_TOL,
+          f"eval_poses against phase 6's angles: {err} deg (limit {EVAL_TOL})")
+    quality[("shoes", "run (phase 6)")] = {"rot": ev}
+
+    # -- ab_prescreen, ablate_fine_edge on the shoes --
+    shoes = config("prescreen", "custom_shoes", {"init_num_iterations": PRESCREEN_INIT,
+                                                 "joint_num_iterations": PRESCREEN_JOINT})
+    ab, secs["ab_prescreen"], _ = timed("ab_prescreen", lambda: ab_prescreen.main(
+        ["--config", shoes, "--views", str(PRESCREEN_VIEWS), "--variants", PRESCREEN_VARIANT]))
+    check(all(_finite(r["iou"]) for k, r in ab.items() if k != "agreement"),
+          "ab_prescreen: not finite")
+    edge_cfg = config("fine_edge", "custom_shoes")
+    fe, secs["ablate_fine_edge"], lf = timed("ablate_fine_edge", lambda: ablate_fine_edge.main(
+        ["--config", edge_cfg, "--edges", *map(str, EDGES), "--init-iters", str(EDGE_INIT),
+         "--joint-iters", str(EDGE_JOINT), "--views", str(EDGE_VIEWS)]))
+    for edge, r in fe.items():
+        check(_finite(r["iou"], r["init"], r["joint"]), f"fine edge {edge}: not finite")
+        quality[("shoes", f"edge {edge} ({r['tokens']} tokens)")] = {
+            "iou": r["iou"], "init_rot_err": r["init"], "joint_rot_err": r["joint"],
+            "wall": r["wall"]}
+
+    # -- the probes, each at its own default shapes --
+    prior_cfg = config("probe_priors", "custom_shoes")
+    probes = {
+        "probe_vit_fused": lambda: probe_vit_fused.run(dev, ("xla", "flash")),
+        "probe_step_breakdown": lambda: probe_step_breakdown.run(dev),
+        "probe_prior_stages": lambda: probe_prior_stages.run(prior_cfg, 0, dev),
+        "probe_raster_stages": lambda: probe_raster_stages.run(dev),
+        "probe_raster_stages --bwd": lambda: probe_raster_stages.run(dev, bwd=True),
+        "probe_hash_step": lambda: probe_hash_step.run(dev),
+        "probe_hash_breakdown": lambda: probe_hash_breakdown.run(dev),
+    }
+    for name, fn in probes.items():
+        res, secs[name], _ = timed(name, fn)
+        flat = [v for r in res.values() for v in (r.values() if isinstance(r, dict) else (r,))
+                if v is not None]
+        check(flat and _finite(*flat), f"{name}: numbers not finite: {res}")
+
+    # -- warm_cache into a fresh build directory; weak_scaling at one rank --
+    fresh = os.path.join(tmp, "warm_build")
+    wc, secs["warm_cache"], _ = timed("warm_cache", lambda: warm_cache.main(
+        ["--config", kettle, "--build-dir", fresh]))
+    built = sorted(f for f in os.listdir(fresh) if f.endswith(".so"))
+    check(len(built) == len(kernels.SOURCES) and _finite(*wc.values()),
+          f"warm_cache built {built} into {fresh}")
+    torch.cuda.empty_cache()
+    ws, secs["weak_scaling"], _ = timed("weak_scaling", lambda: weak_scaling.run(devices=[1]))
+    check(_finite(ws[0]["ms"], ws[0]["losses"]), f"weak_scaling: {ws}")
+    print(f"[tools] phase 11 seconds by tool {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+          f", {sum(secs.values()):.1f} s in all — {card}", flush=True)
+    print("[tools] quality (sequence, arm): joint IoU, mean / median rotation error after refine "
+          "and after joint (deg) against gt_poses.npz — " + "; ".join(
+              f"{seq} {arm}: " + (f"{r['iou']:.4f}, {np.mean(r['init_rot_err']):.2f} / "
+                                  f"{np.median(r['init_rot_err']):.2f}, "
+                                  f"{np.mean(r['joint_rot_err']):.2f} / "
+                                  f"{np.median(r['joint_rot_err']):.2f}"
+                                  if "iou" in r else
+                                  f"final {r['rot']['rot_mean']:.2f} / {r['rot']['rot_median']:.2f}")
+              for (seq, arm), r in quality.items()) + f" — {card}", flush=True)
+    return quality
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the card; it never runs the CPU path)")
@@ -3601,7 +3847,11 @@ def main() -> None:
         f"[main] flash, ViT in f32 against bf16: {f32['ms_step']:.2f} vs {fused['ms_step']:.2f} "
         f"ms/step, peak {f32['peak_gib']:.2f} vs {fused['peak_gib']:.2f} GiB — {smi}", flush=True,
     )
-    phase_remat(dev, sc, smi, DinoConfig())
+    remat = {impl: phase_remat(dev, sc, smi, cfg) for impl, cfg in (("xla", DinoConfig()),
+                                                                     ("flash", flash))}
+    print("[remat] policy x attn_impl: " + "; ".join(
+        f"{impl} {p!r} {r['ms']:.2f} ms/step {r['peak_gib']:.2f} GiB"
+        for impl, rs in remat.items() for p, r in rs.items()) + f" — {smi}", flush=True)
     for impl, dtype in (("xla", "float32"), ("flash", "bfloat16"), ("flash", "float32")):
         phase_small_reference(dev, impl, dtype)
     phase_joint(dev, sc, smi)
@@ -3632,6 +3882,7 @@ def main() -> None:
         phase_recon_small(dev)
         phase_shard_nccl(dev, tmp)
         phase_shard(dev, smi, tmp, run, seqs)
+        phase_tools(dev, smi, tmp, run, seqs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]

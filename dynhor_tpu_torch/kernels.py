@@ -80,19 +80,21 @@ def _nvcc() -> str:
     return found
 
 
-def _start_build(name: str):
-    """Start compiling one source if its library is missing; returns
-    (library path, log path, temporary path, the running nvcc or None)."""
+def _start_build(name: str, build_dir: str | None = None):
+    """Start compiling one source if its library is missing from
+    ``build_dir`` (default ``BUILD_DIR``); returns (library path, log path,
+    temporary path, the running nvcc or None)."""
+    build_dir = build_dir or BUILD_DIR
     src = os.path.join(_HERE, "csrc", name + ".cu")
     flags = SOURCES[name][0]
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
     stem = f"{name}_{digest[:16]}"
-    lib = os.path.join(BUILD_DIR, stem + ".so")
-    log = os.path.join(BUILD_DIR, stem + ".log")
+    lib = os.path.join(build_dir, stem + ".so")
+    log = os.path.join(build_dir, stem + ".log")
     if os.path.exists(lib):
         return lib, log, None, None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     proc = subprocess.Popen(
         [_nvcc(), *flags, "-o", tmp, src],
@@ -126,11 +128,14 @@ def _lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def build() -> str:
+def build(build_dir: str | None = None) -> str:
     """Build every kernel library not yet loaded (all compilers started
     together) and load them; returns ptxas's report (registers, shared
-    memory, spills) of each kernel."""
-    started = {name: _start_build(name) for name in SOURCES if name not in _libs}
+    memory, spills) of each kernel.  With ``build_dir``, every library is
+    built there (where missing) and loaded from there, in place of any
+    loaded before."""
+    names = SOURCES if build_dir else [name for name in SOURCES if name not in _libs]
+    started = {name: _start_build(name, build_dir) for name in names}
     errors = []
     for name, job in started.items():  # wait for every compiler before raising
         try:

@@ -14,13 +14,12 @@ out (matmul, softmax, matmul); "flash" and "splash", two TPU kernels there,
 both select ``ops/flash_attention.flash_attention`` here, one hand-written
 CUDA flash attention (bf16 at head dim 64 on the card, its plain version on
 the CPU).  There is no quiet switch back to "xla".  ``remat`` (the refine's
-``RefineConfig.dino_remat``) recomputes each block in the backward through
-``torch.utils.checkpoint``: the JAX package's True, "dots" and "frozen"
-policies differ only in which activations they save, and with frozen
-weights every one of them is the same per-block recomputation here; False
-keeps every activation.  ``load_params`` reads a torch state_dict (.pth, or .npz of
-the same keys) through ``convert_torch_state_dict``, or draws random
-weights from a seed.
+``RefineConfig.dino_remat``) is the JAX package's recomputation policy for
+the backward, keeping what it keeps (``_trunk``): "frozen" keeps each
+block's input, ``qkv``, mid residual and fc1 output; "dots" every matmul
+output; True only the block inputs; False everything.  ``load_params``
+reads a torch state_dict (.pth, or .npz of the same keys) through
+``convert_torch_state_dict``, or draws random weights from a seed.
 """
 from __future__ import annotations
 
@@ -181,25 +180,68 @@ def _attention(q: Tensor, k: Tensor, v: Tensor, hd: int) -> Tensor:
     return o * (1.0 / denom).to(dtype)
 
 
-def _block(
-    x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float, attn_impl: str = "xla"
-) -> Tensor:
-    b, n, d = x.shape
+def _attention_core(qkv: Tensor, num_heads: int, attn_impl: str) -> Tensor:
+    """(B, N, 3D) qkv -> (B, N, D) attention output, before the projection."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
     hd = d // num_heads
-    h = _layer_norm(x, p["norm1_scale"], p["norm1_bias"], eps)
-    qkv = h @ p["qkv_kernel"] + p["qkv_bias"]  # (B, N, 3D)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     if attn_impl == "xla":
         o = _attention(q, k, v, hd)
     else:  # q, k, v go in as the strided views they are
         o = flash_attention(q, k, v, 1.0 / math.sqrt(hd))
-    o = o.transpose(1, 2).reshape(b, n, d)
+    return o.transpose(1, 2).reshape(b, n, d)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _recomputed(fn, *args):
+    """fn(*args), keeping only its tensor arguments for the backward, which
+    runs fn again (the ViT draws no random numbers, so no RNG state)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False
+    )
+
+
+def _block(
+    x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float, attn_impl: str = "xla",
+    frozen: bool = False,
+) -> Tensor:
+    """One pre-norm block.  With ``frozen`` (the JAX package's "frozen"
+    policy) the layer norms and the attention core run as recomputed
+    segments, so the backward keeps exactly the block input, ``qkv``, the
+    mid residual and the fc1 output: a matmul by a weight that needs no
+    gradient keeps only the weight, and the GELU keeps its input, the fc1
+    output."""
+    seg = _recomputed if frozen else _call
+    h = seg(_layer_norm, x, p["norm1_scale"], p["norm1_bias"], eps)
+    qkv = h @ p["qkv_kernel"] + p["qkv_bias"]  # (B, N, 3D)
+    o = seg(_attention_core, qkv, num_heads, attn_impl)
     o = o @ p["proj_kernel"] + p["proj_bias"]
     x = x + p["ls1"] * o
-    h = _layer_norm(x, p["norm2_scale"], p["norm2_bias"], eps)
+    h = seg(_layer_norm, x, p["norm2_scale"], p["norm2_bias"], eps)
     h = torch.nn.functional.gelu(h @ p["fc1_kernel"] + p["fc1_bias"], approximate="none")
     h = h @ p["fc2_kernel"] + p["fc2_bias"]
     return x + p["ls2"] * h
+
+
+# The ops whose outputs "dots" keeps: every matmul (a 3-D @ 2-D matmul runs
+# as mm, a batched one as bmm).  The hand-written attention (ctypes, outside
+# the dispatcher) is no matmul here, as the Pallas call is no dot_general in
+# the JAX package: it runs again in the backward.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    CP = torch.utils.checkpoint.CheckpointPolicy
+    return CP.MUST_SAVE if op in _DOTS else CP.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _interp_pos_embed(pos_embed: Tensor, grid0: int, gh: int, gw: int) -> Tensor:
@@ -218,21 +260,44 @@ def _trunk(
     remat: bool | str = False,
 ) -> Tensor:
     """cls + pos-embed + blocks + final LN on patch-embedded tokens
-    x (B, gh*gw, D); returns the patch tokens.  A true ``remat`` (True,
-    "dots", "frozen") recomputes each block in the backward instead of
-    keeping its activations (the step's numbers are the same)."""
+    x (B, gh*gw, D); returns the patch tokens.
+
+    ``remat`` is the JAX package's policy for what the backward keeps of
+    each block (``dynhor_tpu/models/dino.py:_trunk``); the numbers are the
+    same under every policy:
+      False     every activation;
+      "frozen"  the block input, ``qkv``, the mid residual and the fc1
+                output, 9·D values a token, nothing of size N²; the backward
+                recomputes the layer norms and the attention core (QKᵀ and
+                the softmax, or the flash forward), as the JAX policy's named
+                saves do with weights that take no gradient;
+      "dots"    the block input and every matmul output (selective
+                checkpointing: the scores but not the softmax); the rest,
+                the flash kernel included, runs again in the backward;
+      True      the block inputs only; the backward runs each block again.
+    What "frozen" keeps holds for weights that take no gradient (the
+    refine's); weights that do take one also keep the inputs of their
+    matmuls, and their gradients are right under every policy.
+    """
     b = x.shape[0]
     cls = params["cls_token"].expand(b, 1, cfg.embed_dim).to(x.dtype)
     x = torch.cat([cls, x], dim=1)
     pos = _interp_pos_embed(params["pos_embed"].float(), cfg.pos_grid, gh, gw)
     x = x + pos.to(x.dtype)
     blocks = params["blocks"]
-    recompute = bool(remat) and torch.is_grad_enabled()
+    policy = remat if torch.is_grad_enabled() else False
     for i in range(cfg.depth):
         args = (x, {k: v[i] for k, v in blocks.items()}, cfg.num_heads,
                 cfg.layer_norm_eps, cfg.attn_impl)
-        if recompute:
-            x = torch.utils.checkpoint.checkpoint(_block, *args, use_reentrant=False)
+        if policy == "frozen":
+            x = _block(*args, frozen=True)
+        elif policy == "dots":
+            x = torch.utils.checkpoint.checkpoint(
+                _block, *args, use_reentrant=False, preserve_rng_state=False,
+                context_fn=_dots_context,
+            )
+        elif policy:
+            x = _recomputed(_block, *args)
         else:
             x = _block(*args)
     x = _layer_norm(x, params["norm_scale"], params["norm_bias"], cfg.layer_norm_eps)

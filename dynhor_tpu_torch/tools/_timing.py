@@ -84,3 +84,21 @@ def split_in_turns(kernel, library, device, rounds: int = 2, n: int = 20) -> dic
         return {k: float(np.median([s[k] for s in samples])) for k in samples[0]}
 
     return {"kernel": medians(ks), "library": medians(ls)}
+
+
+def wall_s(fn, device):
+    """(fn()'s result, seconds of wall clock) between two synchronizations
+    of ``device`` (a CUDA device; the first synchronization fails on the
+    CPU)."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def first_and_mean_ms(fn, device, n: int = 10) -> tuple[float, float]:
+    """(ms of the first call, the kernels' build included; mean ms per call
+    of the next ``n`` calls by CUDA events)."""
+    _, first = wall_s(fn, device)
+    return first * 1e3, timeit(fn, device, n, warmup=0)

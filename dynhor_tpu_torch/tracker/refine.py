@@ -79,10 +79,12 @@ class RefineConfig:
     # ViT compute dtype of the sem loss; the backbone is frozen and only the
     # direction of the image gradient matters.
     dino_dtype: str = "bfloat16"
-    # Recomputation of the ViT's blocks in the sem loss's backward: False
-    # keeps every activation; True, "dots" and "frozen" (the JAX package's
-    # policies, which differ in what they save) each recompute a block at a
-    # time (models/dino._trunk).  The step computes the same function.
+    # What the sem loss's backward keeps of each ViT block (the JAX
+    # package's policies, models/dino._trunk): "frozen" the block input,
+    # qkv, the mid residual and the fc1 output (9·D values a token; the
+    # layer norms and the attention core run again); "dots" every matmul
+    # output; True the block input only (each block runs again); False
+    # everything.  The step computes the same function under each.
     dino_remat: bool | str = "frozen"
 
 

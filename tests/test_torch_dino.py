@@ -101,7 +101,8 @@ def test_presets_and_loader_without_a_checkpoint():
 # the counterparts of tests/test_dino.py's, at their tolerances.
 @pytest.fixture(scope="module")
 def hf_model():
-    from transformers import Dinov2Config, Dinov2Model
+    transformers = pytest.importorskip("transformers")
+    Dinov2Config, Dinov2Model = transformers.Dinov2Config, transformers.Dinov2Model
 
     cfg = Dinov2Config(hidden_size=64, num_hidden_layers=3, num_attention_heads=4,
                        intermediate_size=256, patch_size=14, image_size=224, layerscale_value=0.7)
@@ -124,3 +125,51 @@ def test_matches_transformers_dinov2(hf_model, size, seed, atol):
         want = hf_model(img).last_hidden_state[:, 1:].numpy()
         got = TD.forward_tokens(params, img, cfg).numpy()
     np.testing.assert_allclose(got, want, atol=atol)
+
+
+def _official_from_hf(hf_sd, depth):
+    """The official facebookresearch/dinov2 naming of a transformers
+    state_dict (qkv concatenated), as tests/test_dino.py builds it."""
+    official = {
+        "cls_token": hf_sd["embeddings.cls_token"],
+        "pos_embed": hf_sd["embeddings.position_embeddings"],
+        "patch_embed.proj.weight": hf_sd["embeddings.patch_embeddings.projection.weight"],
+        "patch_embed.proj.bias": hf_sd["embeddings.patch_embeddings.projection.bias"],
+        "norm.weight": hf_sd["layernorm.weight"],
+        "norm.bias": hf_sd["layernorm.bias"],
+    }
+    names = {"norm1.weight": "norm1.weight", "norm1.bias": "norm1.bias",
+             "attn.proj.weight": "attention.output.dense.weight",
+             "attn.proj.bias": "attention.output.dense.bias",
+             "ls1.gamma": "layer_scale1.lambda1", "norm2.weight": "norm2.weight",
+             "norm2.bias": "norm2.bias", "mlp.fc1.weight": "mlp.fc1.weight",
+             "mlp.fc1.bias": "mlp.fc1.bias", "mlp.fc2.weight": "mlp.fc2.weight",
+             "mlp.fc2.bias": "mlp.fc2.bias", "ls2.gamma": "layer_scale2.lambda1"}
+    for i in range(depth):
+        pre = f"encoder.layer.{i}."
+        for part in ("weight", "bias"):
+            official[f"blocks.{i}.attn.qkv.{part}"] = torch.cat(
+                [hf_sd[pre + f"attention.attention.{n}.{part}"] for n in ("query", "key", "value")])
+        official.update({f"blocks.{i}.{k}": hf_sd[pre + v] for k, v in names.items()})
+    return official
+
+
+def test_official_naming_conversion_roundtrip(hf_model):
+    """Both namings convert to the same parameters, equal to the JAX
+    package's conversion of the same weights."""
+    hf_sd = hf_model.state_dict()
+    cfg = TD.DinoConfig(patch_size=14, embed_dim=64, depth=3, num_heads=4, pos_grid=16,
+                        smaller_edge_size=224)
+    p_hf, _ = TD.convert_torch_state_dict(hf_sd, cfg)
+    p_of, c_of = TD.convert_torch_state_dict(_official_from_hf(hf_sd, 3), cfg)
+    p_j, c_j = JD.convert_torch_state_dict(_official_from_hf(hf_sd, 3), JD.DinoConfig(
+        patch_size=14, embed_dim=64, depth=3, num_heads=4, pos_grid=16, smaller_edge_size=224))
+    assert (c_of.embed_dim, c_of.depth, c_of.num_heads, c_of.pos_grid) == (
+        c_j.embed_dim, c_j.depth, c_j.num_heads, c_j.pos_grid)
+    for path, a in jax.tree_util.tree_leaves_with_path(p_hf):
+        keys = [k.key for k in path]
+        b, want = p_of, p_j
+        for k in keys:
+            b, want = b[k], want[k]
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=str(keys))
+        np.testing.assert_array_equal(a.numpy(), np.asarray(want), err_msg=str(keys))

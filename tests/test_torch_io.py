@@ -10,8 +10,9 @@ artifacts and the DINOv2 checkpoint loader, and the demo-data twin.
 - artifacts: the port's npz files are byte-identical to the JAX package's
   and its ``load_pose_npz`` reads them back; ``copy_config`` and ``Board``
   write the same tree;
-- checkpoint: a full-size official-layout file from
-  tools/make_dino_checkpoint.py (.npz and .pth) gives equal parameters in
+- checkpoint: a full-size official-layout file from the port's
+  ``tools.make_dino_checkpoint`` (.npz and .pth; its values are the JAX
+  tool's, tests/test_torch_tools.py) gives equal parameters in
   both packages (exact), as does a HuggingFace-named one;
 - the demo-data twin on the box mesh at 120x160, 3 frames: both packages'
   ``validate_or_raise`` accept it, and its correspondences reproject under
@@ -37,10 +38,9 @@ from dynhor_tpu_torch.io import artifacts as TA
 from dynhor_tpu_torch.io import config as TCFG
 from dynhor_tpu_torch.io import ingest as TI
 from dynhor_tpu_torch.models import dino as TD
+from dynhor_tpu_torch.tools.make_dino_checkpoint import official_state_dict
 
 sys.path.insert(0, str(Path(__file__).parent))
-sys.path.insert(0, str(Path(__file__).parent.parent / "tools"))
-from make_dino_checkpoint import official_state_dict  # noqa: E402
 from test_ingest import _write_seq  # noqa: E402
 from test_pipeline_e2e import _write_box_obj  # noqa: E402
 

@@ -6,8 +6,10 @@ of 8 frame files (``process_local_range``: frames 0-3 and 4-7), keeps it as
 its shard (``global_batch``, a replicated scalar beside it), and computes a
 per-frame reduction whose sum crosses the process boundary: every rank
 holds the global sum and the gathered per-frame values of one process.
-In one process: the whole range, ``init_from_env`` doing nothing without
-the launcher's variables, and NCCL refused without a card.
+The same demo as ``python -m dynhor_tpu_torch.tools.multihost_input_demo``,
+two processes started as tests/test_multihost.py starts the JAX tool.  In
+one process: the whole range, ``init_from_env`` doing nothing without the
+launcher's variables, and NCCL refused without a card.
 """
 import os
 import pickle
@@ -83,6 +85,44 @@ def test_two_process_input_pipeline(tmp_path):
         # ...yet holds the GLOBAL reduction.
         np.testing.assert_allclose(float(d["total"]), expected_pf.sum(), rtol=1e-5)
         np.testing.assert_allclose(d["per_frame"], expected_pf, rtol=1e-5)
+
+
+def test_two_process_input_demo_tool(tmp_path):
+    """``python -m dynhor_tpu_torch.tools.multihost_input_demo`` started
+    twice, as tests/test_multihost.py starts the JAX tool: each process
+    writes its slice's range and the global reduction."""
+    rng = np.random.default_rng(0)
+    n = 8
+    frames = rng.uniform(size=(n, 16, 16)).astype(np.float32)
+    data = tmp_path / "frames"
+    data.mkdir()
+    for i in range(n):
+        np.save(data / f"frame_{i:04d}.npy", frames[i])
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    env.pop("WORLD_SIZE", None)
+    rdv = f"file://{tmp_path.resolve() / 'rendezvous'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dynhor_tpu_torch.tools.multihost_input_demo", "--coordinator",
+         rdv, "--rank", str(r), "--world", "2", "--data", str(data),
+         "--out", str(tmp_path / f"out{r}.npz")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    expected_pf = (frames**2).mean(axis=(1, 2)) * (np.arange(n) + 1.0)
+    for rank in range(2):
+        d = np.load(tmp_path / f"out{rank}.npz")
+        assert int(d["rank"]) == rank and int(d["process_count"]) == 2
+        assert (int(d["lo"]), int(d["hi"])) == ((0, 4) if rank == 0 else (4, 8))
+        np.testing.assert_allclose(float(d["total"]), expected_pf.sum(), rtol=1e-5)
+        np.testing.assert_allclose(d["per_frame"], expected_pf, rtol=1e-5)
+        assert f"rank {rank}: total=" in logs[rank]
 
 
 def test_one_process_defaults(monkeypatch):

@@ -281,8 +281,8 @@ def test_multihyp_propagation_rescues_a_frame():
 
 
 def test_dino_remat_gives_the_same_step():
-    """One fine step's loss and d(rot6d, trans) with per-block recomputation
-    ("frozen") and without (False), f32, within 1e-6; the JAX package's
+    """One fine step's loss and d(rot6d, trans) under each recomputation
+    policy ("frozen", "dots", True) and without (False), f32, within 1e-6; the JAX package's
     RefineConfig fields build in the port."""
     cfg_j = JR.RefineConfig(lw_mask=0.5, dino_remat="dots")
     assert TR.RefineConfig(lw_mask=0.5, dino_remat="dots").lw_mask == cfg_j.lw_mask
@@ -300,7 +300,7 @@ def test_dino_remat_gives_the_same_step():
     rot0 = TR.G.matrix_to_rot6d(torch.as_tensor(np.stack([
         np.eye(3), _rot_z(20.0)]).astype(np.float32)))
     out = {}
-    for remat in (False, "frozen", True):
+    for remat in (False, "frozen", "dots", True):
         cfg = TR.RefineConfig(crop_size=SIZE, mode="fine", dino_dtype="float32", face_chunk=12,
                               silhouette_impl="tiled", dino_remat=remat)
         r6 = rot0.clone().requires_grad_(True)
@@ -308,7 +308,7 @@ def test_dino_remat_gives_the_same_step():
         loss, _, _ = TR._frame_loss(r6, tr, mesh_t, targets_t, params, dcfg, cfg)
         loss.sum().backward()
         out[remat] = (loss.detach(), r6.grad, tr.grad)
-    for remat in ("frozen", True):
+    for remat in ("frozen", "dots", True):
         for a, b in zip(out[remat], out[False]):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     assert float(out[False][1].abs().max()) > 0

@@ -28,7 +28,13 @@ run_slice = {"dynhor_tpu_torch." + m for m in (
     "neus.data", "utils.profiling", "utils.constants", "tools.make_demo_data", "vis",
     "visualizer", "run_multi", "parallel.multiseq", "neus.fields", "neus.rendering",
     "neus.trainer", "neus.extract", "neus.draws", "native", "recon", "tools.bench_neus",
-    "parallel.mesh", "parallel.multihost")}
+    "parallel.mesh", "parallel.multihost", "tools.eval_poses", "tools.export_gt_poses",
+    "tools.ingest_data", "tools.make_kettle_mesh", "tools.make_dino_checkpoint",
+    "tools.convert_dino_checkpoint", "tools.ablate_oracle_init", "tools.ablate_multihyp",
+    "tools.ab_prescreen", "tools.ablate_fine_edge", "tools.probe_vit_fused",
+    "tools.probe_step_breakdown", "tools.probe_prior_stages", "tools.probe_raster_stages",
+    "tools.probe_hash_step", "tools.probe_hash_breakdown", "tools.warm_cache",
+    "tools.weak_scaling", "tools.multihost_input_demo")}
 assert run_slice <= set(names), sorted(run_slice - set(names))
 print("ok", len(names))
 """
@@ -114,3 +120,16 @@ def test_recon_entry_points_without_device_need_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TT.train(data, tcfg=TT.TrainConfig(num_steps=1))
     assert not any(tmp_path.iterdir()) or [p.name for p in tmp_path.iterdir()] == ["c.yaml"]
+
+
+@pytest.mark.parametrize("tool", ["probe_vit_fused", "probe_step_breakdown", "probe_raster_stages",
+                                  "probe_hash_step", "probe_hash_breakdown", "weak_scaling"])
+def test_tools_without_device_need_a_card(monkeypatch, tool):
+    """The probes time on the card only, and weak scaling takes cards
+    unless asked for the CPU: without a card each raises before any work."""
+    import importlib
+
+    mod = importlib.import_module(f"dynhor_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.run(out=lambda s: None)

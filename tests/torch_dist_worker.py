@@ -318,25 +318,14 @@ def case_multiseq(inp):
 
 
 def case_multihost(inp):
-    """Each process loads only its slice of the frame files; the global sum
-    crosses the process boundary (the JAX package's multihost demo)."""
-    import glob
+    """The port's multihost demo (``tools/multihost_input_demo.demo``): each
+    process loads only its slice of the frame files; the global sum
+    crosses the process boundary."""
+    from dynhor_tpu_torch.tools.multihost_input_demo import demo
 
-    d = inp["multihost"]
-    files = sorted(glob.glob(os.path.join(d["data"], "frame_*.npy")))
-    n = len(files)
-    lo, hi = MH.process_local_range(n)
-    frames = torch.as_tensor(np.stack([np.load(f) for f in files[lo:hi]]))
-    mesh = PM.make_mesh(axis_name="frames")
-    batch = MH.global_batch({"frames": frames, "w": torch.arange(lo, hi) + 1.0,
-                             "scale": torch.tensor(2.0)}, n, mesh, "frames")
-    b = batch.local
-    per_frame = (b["frames"] ** 2).mean(dim=(1, 2)) * b["w"] * b["scale"] / 2.0
-    total = PM.all_reduce(per_frame.sum(), mesh)
+    out = demo(inp["multihost"]["data"])
     MH.init_distributed("localhost:1", 2, 0)  # a second call does nothing
-    return {"lo": np.array(lo), "hi": np.array(hi), "n_global": np.array(batch.n_global),
-            "total": _np(total), "per_frame": _np(PM.gather_leading(per_frame, mesh)),
-            "world": np.array(PM.world()[1])}
+    return out
 
 
 CASES = {k[5:]: v for k, v in globals().items() if k.startswith("case_")}
