@@ -39,6 +39,13 @@ Phases; any failure exits non-zero.
    67 TFLOP/s) under ``bound_f32_simt_ms``.  Every row with a library time
    (forward and whole backward, both dtypes) times kernel and library in
    turns (kernel, library, library, kernel, twice) and reports the medians.
+   Then K5c, the fused backward (``splash_fused_bwd``), in bf16 and f32
+   against ``flash_bwd_fused_plain`` at the same shapes: its dQ partials,
+   their sum, dk and dv within the same tolerances, two runs bit for bit;
+   timed in turns, the whole fused backward (delta, K5c, the partials' sum)
+   against ``scaled_dot_product_attention``'s backward and against the
+   two-pass backward; its bound counts the five products and the
+   partials' bytes.
 2d. K4 (the separate soft silhouette) at the fine step's shapes: K4a and
    K4b (K2's kernel on K4a's rows) against their plain versions, timed
    beside their bounds; ``soft_silhouette_kernel`` forward and d(verts)
@@ -64,8 +71,14 @@ Phases; any failure exits non-zero.
    window's device busy time and idle share, the final poses' difference,
    and one step's loss and gradients held to False's (no further apart than
    two runs of one setting).
+   Then ``attn_impl="splash"`` with ``splash_fused_bwd`` (K5c), bf16 for
+   10 steps and f32 for 2: each K5c of the dtype once per layer and step, no
+   dK/dV or dQ kernel, and the final poses within twice the card's own
+   spread (two runs of the two-pass setting) of the "flash" run's, and
+   never held tighter than 2.9e-3 (bf16) or 1e-4 (f32).
    Then the same entry point on a small scene, on the card and on the CPU
-   (plain versions), must agree, for both attentions and for f32 "flash".
+   (plain versions), must agree, for both attentions, for f32 "flash" and
+   for the fused backward in both dtypes.
 3b. Joint optimization at full width: ``joint_optimize`` at the pipeline's
    defaults (200 steps, lr 1e-4, smoothness weight 10, sigma 0.25) on the
    phase-2 scene from jittered inits, ``silhouette_impl="pallas"``: K1 and
@@ -84,7 +97,8 @@ Phases; any failure exits non-zero.
 4b. The prior path on a small scene, card against CPU, for both attentions
    and for f32 "flash".
 5. Every kernel of the ``kernels`` line launched on its path: K1-K3 and K5
-   in phases 3 and 4 (the f32 K5 in phase 3's f32 run), K1-K3 again in
+   in phases 3 and 4 (the f32 K5 in phase 3's f32 run, K5c in its fused-bwd
+   runs), K1-K3 again in
    phase 6, K4a and K4b in 3c, K6 in 2e.
 6. ``run.py`` at full width on the card, through the port's entry point
    ``python -m dynhor_tpu_torch.run`` (its ``main``, in this process, from a
@@ -127,12 +141,13 @@ Phases; any failure exits non-zero.
 8. Multi-sequence pooling at full width: ``python -m
    dynhor_tpu_torch.run_multi`` (its ``main``, in this process) on phase
    6's shoes sequence and a 12-frame 480x640 kettle sequence from the
-   demo-data twin, at the ``io/config.py`` defaults (6,000 random views a
-   sequence in one stage, a random-weight ViT-B/14 at 518² in bf16, 100
+   demo-data twin, at the ``io/config.py`` defaults (but 2,000 random views
+   a sequence in one stage and 50 refine steps, cut from 6,000 and 100 for
+   the script's time; a random-weight ViT-B/14 at 518² in bf16, the
    refine steps of the 24 pooled frames in two groups of 16, the second
    padded by 8, and 200 joint steps a sequence): both sequences' artifacts,
    the counted caps and no overflow, K1/K2 once per group step and joint
-   step (600), K3 once per view chunk of each scoring call; the seconds per
+   step (500), K3 once per view chunk of each scoring call; the seconds per
    phase, the peak memory, each sequence's caps in the pooled batch and
    K1/K2's times at the pooled cap.  Then tests/test_multiseq.py's two
    boxes pooled, on the card and on the CPU, poses within 1e-4.
@@ -183,13 +198,15 @@ Phases; any failure exits non-zero.
    phase 6's own angles within 1e-4 degrees; ``ab_prescreen`` at 1000
    views and ``ablate_fine_edge`` at edges 518 and 252 on the shoes (depth
    cut); each probe at its own default shapes (the ViT probe under both
-   attentions); ``warm_cache`` into a fresh
+   attentions; ``probe_vit_attention``'s four variants, which launch K5c
+   and the dQ kernel); ``warm_cache`` into a fresh
    build directory; ``weak_scaling`` at one NCCL rank.  Every tool returns
    finite numbers; the quality numbers (joint IoU, rotation errors against
    GT) are printed.
 
-Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``.  Without a CUDA device it exits 1 and prints no result.
+Each phase group prints ``[time]``, the script's seconds so far.  Prints a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -330,20 +347,27 @@ def _counted(kernels) -> dict:
         "K5 dkv": kernels.flash_bwd_dkv, "K5 dq": kernels.flash_bwd_dq,
         "K5 fwd f32": kernels.flash_fwd_f32, "K5 delta f32": kernels.flash_bwd_delta_f32,
         "K5 dkv f32": kernels.flash_bwd_dkv_f32, "K5 dq f32": kernels.flash_bwd_dq_f32,
+        "K5c": kernels.flash_bwd_fused, "K5c f32": kernels.flash_bwd_fused_f32,
         "K4a": kernels.sil_mass_fwd, "K4b": kernels.sil_mass_bwd,
         "K6 take_along_axis": kernels.take_along_axis,
         "K6 scatter_add_axis0": kernels.scatter_add_axis0,
     }
 
 
+# The fused backward (K5c) of each dtype: its launch-count key.
+K5C_KEYS = {"bfloat16": "K5c", "float32": "K5c f32"}
+
+
 def check_k5_launches(launches: dict, fwd: int, bwd: int, where: str,
-                      dtype: str = "bfloat16") -> None:
+                      dtype: str = "bfloat16", fused: bool = False) -> None:
     """fwd and bwd launches of each K5 kernel of ``dtype``, none of the
-    other dtype's."""
+    other dtype's; with ``fused`` the backward's are delta's and the fused
+    kernel's (K5c), and the dK/dV and dQ kernels never launch."""
     want = {}
     for name, keys in K5_DTYPE_KEYS.items():
         f, b = (fwd, bwd) if name == dtype else (0, 0)
-        want.update({keys[0]: f, keys[1]: b, keys[2]: b, keys[3]: b})
+        want.update({keys[0]: f, keys[1]: b, keys[2]: 0 if fused else b,
+                     keys[3]: 0 if fused else b, K5C_KEYS[name]: b if fused else 0})
     got = {k: launches[k] for k in want}
     check(got == want, f"{where}: K5 launches {got}, expected {want}")
 
@@ -936,6 +960,130 @@ def phase_flash_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
     return rows_out
 
 
+def fused_parity(q, k, v, g, scale, where: str):
+    """K5c (the fused backward) against ``flash_bwd_fused_plain`` on the same
+    inputs, the plain forward's log-sum-exp and delta; its partials, their
+    sum and dk, dv within ``k5_parity``'s tolerances; two runs bit for bit.
+    Returns the plain forward's (o, lse, delta) and the errors as {name:
+    (max abs err, max |ref|)}."""
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.ops import flash_attention as FA
+
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, scale)
+    delta_p = FA.flash_delta_plain(o_p, g)
+    part_p, dk_p, dv_p = FA.flash_bwd_fused_plain(q, k, v, g, lse_p, delta_p, scale)
+    part, dk, dv = kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, scale)
+    torch.cuda.synchronize()
+    check(part.shape == part_p.shape, f"K5c partials {tuple(part.shape)} at {where}, plain "
+          f"{tuple(part_p.shape)}")
+    # No atomics: a second run gives the same bits.
+    again = kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, scale)
+    check(all(torch.equal(a, b) for a, b in zip((part, dk, dv), again)),
+          f"K5c differs between two runs on the same inputs at {where}")
+
+    def rel(a, ref):
+        a, ref = a.float(), ref.float()
+        check(bool(torch.isfinite(a).all()), f"K5c output not finite at {where}")
+        return float((a - ref).abs().max()), float(ref.abs().max())
+
+    errs = {"dq_part": rel(part, part_p), "dq": rel(FA.sum_dq_part(part), FA.sum_dq_part(part_p)),
+            "dk": rel(dk, dk_p), "dv": rel(dv, dv_p)}
+    tol = 1e-5 if q.dtype == torch.float32 else 2.0**-7
+    for name, (e, m) in errs.items():
+        if q.shape[2] == 1 and name != "dv":
+            # One key: dS = dP - delta is 0 in exact arithmetic (see k5_parity).
+            check(e <= 1e-5 and m <= 1e-5, f"K5c {name} at {where}: {e}, {m} not 0 within 1e-5")
+            continue
+        check(e <= tol * m, f"K5c {name}: error {e} > {tol} x max |ref| {m} at {where}")
+    return (o_p, lse_p, delta_p), errs
+
+
+def phase_fused_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> list[dict]:
+    """K5c of ``dtype`` against its plain version on the card at the fine
+    step's shape, the prescreen's (50, 12, 65, 64) and the tile edges
+    (``K5_EDGE_N``, B 2, H 3), two runs bit for bit; then timed in turns
+    against ``scaled_dot_product_attention``'s backward and against the
+    two-pass backward.  Returns the row of the fine step's shape.
+
+    Tolerances as ``k5_parity``'s.  The bound counts the five products of
+    the backward (S, dP, dV, dK, dQ) and the bytes of q, k, v, dO, the rows'
+    log-sum-exp and delta read, dk, dv and the partials written."""
+    from dynhor_tpu_torch import kernels
+    from dynhor_tpu_torch.ops import flash_attention as FA
+
+    f32 = dtype == torch.float32
+    tname, sfx = ("f32", " f32") if f32 else ("bf16", "")
+    for n in K5_EDGE_N:
+        q, k, v, g = block_views(2, 3, n, 64, 200 + n, dev, dtype)
+        _, errs = fused_parity(q, k, v, g, 0.125, f"(2, 3, {n}, 64) {tname}")
+        print(f"[k5c] {tname} tile edge N={n} (B=2, H=3): within tolerance, bit-identical over "
+              "two runs; max abs err (max |ref|) "
+              + ", ".join(f"{name} {e:.3g} ({m:.3g})" for name, (e, m) in errs.items()),
+              flush=True)
+    row = None
+    for b, h, n, d, seed in ((FRAMES, 12, 1370, 64, 43), (50, 12, 65, 64, 44)):
+        q, k, v, g = block_views(b, h, n, d, seed, dev, dtype)
+        scale = 1.0 / d**0.5
+        (o_p, lse_p, delta_p), errs = fused_parity(q, k, v, g, scale,
+                                                   f"({b}, {h}, {n}, {d}) {tname}")
+        print(f"[k5c] (B={b}, H={h}, N={n}, d={d}) {tname}, kernel vs plain, max abs err "
+              "(max |ref|): " + ", ".join(f"{name} {e:.3g} ({m:.3g})"
+                                          for name, (e, m) in errs.items()), flush=True)
+        if n != 1370:
+            continue
+
+        def fused_bwd():
+            delta = kernels.flash_bwd_delta(o_p, g)
+            part, _, _ = kernels.flash_bwd_fused(q, k, v, g, lse_p, delta, scale)
+            FA.sum_dq_part(part)
+
+        def two_pass_bwd():
+            delta = kernels.flash_bwd_delta(o_p, g)
+            kernels.flash_bwd_dkv(q, k, v, g, lse_p, delta, scale)
+            kernels.flash_bwd_dq(q, k, v, g, lse_p, delta, scale)
+
+        # The library call, timed here and used nowhere in the port.
+        ql, kl, vl = (x.detach().contiguous().requires_grad_(True) for x in (q, k, v))
+        gl = g.contiguous()
+        out_l = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl)
+        whole, lib, whole_s, lib_s = in_turns(
+            fused_bwd, lambda: torch.autograd.grad(out_l, (ql, kl, vl), gl, retain_graph=True))
+        whole2, two, whole2_s, two_s = in_turns(fused_bwd, two_pass_bwd)
+        ms, _, ms_s, _ = in_turns(
+            lambda: kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, scale), two_pass_bwd)
+        plain = cuda_ms(lambda: FA.flash_bwd_fused_plain(q, k, v, g, lse_p, delta_p, scale), 3)
+        prod = 2 * b * h * n * n * d
+        tensor = b * h * n * d * q.element_size()
+        parts = -(-n // kernels.FUSED_KEYS)
+        ops, nbytes = 5 * prod, (6 + parts) * tensor + 2 * b * h * n * 4
+        peak = PEAK_TF32_3X if f32 else PEAK_BF16
+        row = kernel_row(
+            "K5c" + sfx + " flash_attention",
+            f"dynhor_tpu_torch/csrc/flash_attention{'_f32' if f32 else ''}.cu",
+            "dynhor_tpu/models/dino.py:288 _splash_attention, use_fused_bwd_kernel: "
+            "splash_attention_kernel.py:1857 _splash_attention_bwd_dkv",
+            max(errs["dq"][0], errs["dk"][0], errs["dv"][0]), ms, plain, ops, nbytes, peak, lib,
+        )
+        row["whole_bwd_ms"], row["two_pass_bwd_ms"] = whole, two
+        simt = ""
+        if f32:
+            row["bound_f32_simt_ms"] = max(ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+            simt = f"; on the CUDA cores {row['bound_f32_simt_ms']:.5f} ms"
+        print(
+            f"[k5c] {tname} N={n}: the fused kernel {ms:.4f} ms ({[round(x, 4) for x in ms_s]}), "
+            f"{100 * row['bound_ms'] / ms:.1f} % of its bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}: {ops:.4e} ops, {nbytes} bytes with {parts} partials{simt}); "
+            f"plain {plain:.3f} ms — {card}", flush=True)
+        print(
+            f"[k5c] {tname} N={n} whole backward in turns (fused, other, other, fused, twice), "
+            f"ms: fused (delta + K5c + the partials' sum) {whole:.4f} "
+            f"{[round(x, 4) for x in whole_s]} against scaled_dot_product_attention's backward "
+            f"{lib:.4f} {[round(x, 4) for x in lib_s]}; fused {whole2:.4f} "
+            f"{[round(x, 4) for x in whole2_s]} against the two-pass backward (delta + dK/dV + "
+            f"dQ) {two:.4f} {[round(x, 4) for x in two_s]} — {card}", flush=True)
+    return [row]
+
+
 def phase_silhouette_kernels(dev, sc, card: str) -> list[dict]:
     """K4a and K4b against their plain versions on the rows
     ``soft_silhouette_kernel`` packs for the phase-2 scene (8 frames, 256²,
@@ -1098,12 +1246,13 @@ def phase_gather_kernels(dev, card: str) -> list[dict]:
 
 
 def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg, dtype: str = "bfloat16",
-               steps: int = STEPS) -> dict:
+               steps: int = STEPS, again: bool = False) -> dict:
     """The fine refine at full width under dcfg.attn_impl with the ViT in
-    ``dtype``, ``steps`` steps; returns its ms/step, peak memory and final
-    losses.  The bf16 runs set the launches of the kernel rows other than
-    the f32 K5 ones, the f32 run those, and only the bf16 runs are broken
-    down by parts."""
+    ``dtype``, ``steps`` steps; returns its ms/step, peak memory, final
+    losses and poses, and with ``again`` the poses of a second run on the
+    same inputs (the card's own spread).  The bf16 runs set the launches of
+    the kernel rows other than the f32 K5 ones, the f32 run those, and only
+    the bf16 runs of the two-pass backward are broken down by parts."""
     from dynhor_tpu_torch.models import dino as D
     from dynhor_tpu_torch.tracker import refine as RF
 
@@ -1120,7 +1269,8 @@ def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg, dtype: str = "
         max_faces_per_tile=cap, max_active_tiles=act_cap, dino_dtype=dtype,
     )
     f32 = dtype == "float32"
-    tag = f"[main {dcfg.attn_impl}{' f32' if f32 else ''}]"
+    fused = dcfg.attn_impl == "splash" and dcfg.splash_fused_bwd
+    tag = f"[main {dcfg.attn_impl}{' fused-bwd' if fused else ''}{' f32' if f32 else ''}]"
     print(f"{tag} per-tile face cap {cap}, active-tile cap {act_cap} (counted)", flush=True)
     warm = RF.refine_poses(
         mesh, targets, rot, trans, dparams, dcfg,
@@ -1151,7 +1301,7 @@ def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg, dtype: str = "
     # twice under dino_remat).
     fwd, bwd = k5_per_step(dcfg, cfg)
     check_k5_launches(launches, fwd * steps, bwd * steps,
-                      f"refine_poses {dcfg.attn_impl} {dtype}", dtype)
+                      f"refine_poses {dcfg.attn_impl} {dtype}", dtype, fused)
     ms_step = wall / steps * 1e3
     fps = FRAMES / (wall * (REFINE_STEPS_FULL / steps))
     print(
@@ -1165,14 +1315,60 @@ def phase_main(dev, sc, card: str, kernel_rows: list[dict], dcfg, dtype: str = "
     )
     for row in kernel_rows:
         key = row["name"].rsplit(" ", 1)[0]
-        # One whole backward is one launch of each of its three kernels.
-        n = launches.get(key.replace("K5 bwd", "K5 delta"), 0)
+        # One whole two-pass backward is one launch of each of its three
+        # kernels, the last the dQ kernel's.
+        n = launches.get(key.replace("K5 bwd", "K5 dq"), 0)
         if n > 0 and key.endswith(" f32") == f32:
             row["launches"] = n
-    if not f32:
+    if not f32 and not fused:
         step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, card)
-    return {"ms_step": ms_step, "peak_gib": peak / 2**30, "loss": res.final_loss.tolist(),
-            "rot6d": res.rot6d, "trans": res.translations}
+    out = {"ms_step": ms_step, "peak_gib": peak / 2**30, "loss": res.final_loss.tolist(),
+           "rot6d": res.rot6d, "trans": res.translations}
+    if again:
+        res = RF.refine_poses(mesh, targets, rot, trans * 1.0001, dparams, dcfg, cfg, device=dev)
+        out["again"] = (res.rot6d, res.translations)
+    return out
+
+
+# The card's own spread of the bf16 fine refine's poses after 10 steps
+# between two runs of one setting (1.2e-3 to 2.9e-3, PERF.md): the floor of
+# what the fused backward's run may differ from the two-pass one's.
+BF16_POSE_SPREAD = 2.9e-3
+# The same floor in f32 after 2 steps: RUN_CARD_TOL, the port's f32 limit.
+F32_POSE_SPREAD = 1e-4
+
+
+def pose_diff(a: dict, b) -> float:
+    """Max abs difference of the final rot6d and translations of run a and
+    b (a run's dict, or a (rot6d, translations) pair)."""
+    rb, tb = (b["rot6d"], b["trans"]) if isinstance(b, dict) else b
+    return max(float((a["rot6d"] - rb).abs().max()), float((a["trans"] - tb).abs().max()))
+
+
+def phase_fused_refine(dev, sc, card: str, kernel_rows: list[dict], two_pass: dict,
+                       two_pass_f32: dict) -> None:
+    """The fine refine under ``attn_impl="splash"`` with ``splash_fused_bwd``
+    (the fused backward, K5c), bf16 for 10 steps and f32 for 2, as the
+    two-pass runs of ``"flash"`` before it: every K5c of the ViT's dtype
+    once per layer and step, no dK/dV or dQ kernel; the final poses within
+    twice the card's own spread of the two-pass run's (two runs of the
+    two-pass setting measure it), and never below the floors above."""
+    from dynhor_tpu_torch.models.dino import DinoConfig
+
+    splash = DinoConfig(attn_impl="splash", splash_fused_bwd=True)
+    for dtype, steps, ref, floor in (("bfloat16", STEPS, two_pass, BF16_POSE_SPREAD),
+                                     ("float32", 2, two_pass_f32, F32_POSE_SPREAD)):
+        run = phase_main(dev, sc, card, kernel_rows, splash, dtype, steps)
+        spread = pose_diff(ref, ref["again"])
+        diff = pose_diff(run, ref)
+        tol = max(2 * spread, floor)
+        print(f"[main splash fused-bwd] {dtype}, {steps} steps: {run['ms_step']:.2f} ms/step "
+              f"against the two-pass {ref['ms_step']:.2f}, peak {run['peak_gib']:.2f} against "
+              f"{ref['peak_gib']:.2f} GiB; final poses differ from the two-pass run's by "
+              f"{diff:.3g}, two two-pass runs by {spread:.3g} (limit {tol:.3g}) — {card}",
+              flush=True)
+        check(diff <= tol, f"fused-bwd refine ({dtype}) poses {diff} from the two-pass run's, "
+              f"more than {tol}")
 
 
 def step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, card):
@@ -1272,24 +1468,26 @@ def step_breakdown(dev, mesh, targets, rot, trans, dparams, dcfg, cfg, ms_step, 
         )
 
 
-def small_vit(attn_impl: str, dtype: str = "bfloat16"):
+def small_vit(attn_impl: str, dtype: str = "bfloat16", fused: bool = False):
     """The small scenes' ViT: (config, parameters, dtype name, width).  With
     the written-out attention a tiny f32 one (head dim 16).  K5 takes head
     dim 64 only, so the flash variant is two heads of 64, in ``dtype``, with
     the attention's layer scale raised from the random init's 1e-5 to 1 so
-    that what K5 computes reaches the tokens."""
+    that what K5 computes reaches the tokens; ``fused`` sets
+    ``splash_fused_bwd``."""
     from dynhor_tpu_torch.models import dino as D
 
     width = 32 if attn_impl == "xla" else 128
     dcfg = D.DinoConfig(patch_size=8, embed_dim=width, depth=2, num_heads=2, pos_grid=4,
-                        smaller_edge_size=32, attn_impl=attn_impl)
+                        smaller_edge_size=32, attn_impl=attn_impl, splash_fused_bwd=fused)
     params = D.init_params(dcfg, torch.Generator().manual_seed(3))
     if attn_impl != "xla":
         params["blocks"]["ls1"] = torch.ones_like(params["blocks"]["ls1"])
     return dcfg, params, "float32" if attn_impl == "xla" else dtype, width
 
 
-def phase_small_reference(dev, attn_impl: str = "xla", dtype: str = "bfloat16") -> None:
+def phase_small_reference(dev, attn_impl: str = "xla", dtype: str = "bfloat16",
+                          fused: bool = False) -> None:
     """refine_poses on a small scene: the card (kernels) against the CPU
     (plain versions), over 3 steps.  With the written-out attention, and
     with "flash" in f32 (the f32 K5 kernels), the ViT is f32 without TF32
@@ -1313,7 +1511,7 @@ def phase_small_reference(dev, attn_impl: str = "xla", dtype: str = "bfloat16") 
     K = torch.tensor([[float(s), 0, s / 2], [0, float(s), s / 2], [0, 0, 1.0]])
     vp = RZ.project_perspective(v @ R + t[:, None], K)
     masks = (RZ.rasterize(vp, f, (s, s), face_chunk=12).pix_to_face >= 0).float()
-    dcfg, params, dtype, width = small_vit(attn_impl, dtype)
+    dcfg, params, dtype, width = small_vit(attn_impl, dtype, fused)
     gt = torch.randn((2, 16, width), generator=torch.Generator().manual_seed(4))
     targets = RF.FrameTargets(masks, gt, K.expand(2, 3, 3))
     cfg = RF.RefineConfig(num_iterations=3, crop_size=s, mode="fine", dino_dtype=dtype,
@@ -1323,13 +1521,15 @@ def phase_small_reference(dev, attn_impl: str = "xla", dtype: str = "bfloat16") 
     reset_launches()
     r_dev = RF.refine_poses(mesh, targets, R0, t + 0.03, params, dcfg, cfg, device=dev)
     fwd, bwd = k5_per_step(dcfg, cfg)
-    check_k5_launches(read_launches(), fwd * 3, bwd * 3, f"small refine {attn_impl}", dtype)
+    check_k5_launches(read_launches(), fwd * 3, bwd * 3, f"small refine {attn_impl}", dtype,
+                      fused)
     r_cpu = RF.refine_poses(mesh, targets, R0, t + 0.03, params, dcfg, cfg, device="cpu")
     errs = {
         k: float((a.cpu() - b).abs().max())
         for k, a, b in zip(("rot6d", "trans", "loss", "iou"), r_dev[:4], r_cpu[:4])
     }
-    print(f"[small {attn_impl}] refine_poses 3 steps, {dtype} ViT, card vs CPU max abs err: "
+    print(f"[small {attn_impl}{' fused-bwd' if fused else ''}] refine_poses 3 steps, {dtype} "
+          f"ViT, card vs CPU max abs err: "
           f"{errs}", flush=True)
     if dtype == "float32":
         tols = dict.fromkeys(errs, 1e-4)
@@ -2414,13 +2614,20 @@ KETTLE = "assets/kettle/kettle.obj"
 # boxes pooled, coarse mode on the fused raster (K1/K2 on the card, their
 # plain versions on the CPU), 5 steps; poses within RUN_CARD_TOL.
 MULTI_BOX_STEPS = 5
+# Phase 8's depth, cut from the defaults to fit the script's time: prior
+# views a sequence (6,000; the one-stage scoring took 86 of the phase's
+# 167 s) and refine steps of each pooled group (100; 69 s).
+MULTI_VIEWS = 2000
+MULTI_REFINE_STEPS = 50
 
 
 def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
     """Phase 8: ``python -m dynhor_tpu_torch.run_multi`` (its main, in this
     process) at full width: phase 6's 12-frame shoes sequence and a 12-frame
-    kettle sequence from the demo-data twin, the ``io/config.py`` defaults,
-    the frames pooled (24 frames, groups of 16, the second padded by 8).
+    kettle sequence from the demo-data twin, the ``io/config.py`` defaults
+    but MULTI_VIEWS prior views a sequence and MULTI_REFINE_STEPS refine
+    steps (depth cut from 6,000 and 100), the frames pooled (24 frames,
+    groups of 16, the second padded by 8).
     Checks both sequences' artifacts, the counted caps and overflow it
     prints, K1/K2 once per step of each refine group and of each joint, K3
     once per view chunk of each scoring call; prints the seconds per phase,
@@ -2449,7 +2656,9 @@ def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
         path = os.path.join(tmp, f"{name}_multi.yaml")
         with open(path, "w") as fh:
             yaml.safe_dump({"seq_name": name, "exp_name": "multi",
-                            "data_info": {"dataroot": root, "obj_path": os.path.abspath(obj)}}, fh)
+                            "data_info": {"dataroot": root, "obj_path": os.path.abspath(obj)},
+                            "system": {"init_num_iterations": MULTI_REFINE_STEPS,
+                                       "prior": {"num_views": MULTI_VIEWS}}}, fh)
         paths.append(path)
     print(f"[multi] kettle sequence ({RUN_FRAMES} frames at {RUN_HW[0]}x{RUN_HW[1]}) written by "
           f"the demo-data twin in {t_data:.3f} s; running python -m dynhor_tpu_torch.run_multi "
@@ -2471,7 +2680,7 @@ def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
     peak = torch.cuda.max_memory_allocated()
     text = tee.buf.getvalue()
 
-    sysc = DEFAULTS["system"]
+    sysc = dict(DEFAULTS["system"], init_num_iterations=MULTI_REFINE_STEPS)
     n_pool = len(seqs) * RUN_FRAMES
     groups = -(-n_pool // MS.FRAMES_PER_CARD)
     for name in seqs:
@@ -3647,6 +3856,11 @@ PRESCREEN_VARIANT = "224:2:24"
 # figure taken on a TPU); a miss is a quality fault of the port.
 ORACLE_MIN_IOU, ORACLE_MAX_ROT = 0.90, 5.0
 EVAL_TOL = 1e-4  # eval_poses against phase 6's own angles, degrees
+# probe_vit_attention, max |grad - xla's| over max |xla's|: "flash" (the
+# kernels phase 2c holds) within VIT_PROBE_FLASH_MAX of xla, bf16's rounding
+# (5.18e-3 on an H100 80GB HBM3); "splash" and the fused backward within
+# VIT_PROBE_FACTOR times flash's own gap in the same run (5.18e-3 each).
+VIT_PROBE_FLASH_MAX, VIT_PROBE_FACTOR = 2e-2, 2.0
 
 
 def _finite(*values) -> bool:
@@ -3684,7 +3898,8 @@ def phase_tools(dev, card: str, tmp: str, run: dict, seqs: dict) -> dict:
                                         ablate_oracle_init, eval_poses, probe_hash_breakdown,
                                         probe_hash_step, probe_prior_stages,
                                         probe_raster_stages, probe_step_breakdown,
-                                        probe_vit_fused, warm_cache, weak_scaling)
+                                        probe_vit_attention, probe_vit_fused, warm_cache,
+                                        weak_scaling)
     from dynhor_tpu_torch.tracker import priors as TP
     from dynhor_tpu_torch.utils import geometry as G
 
@@ -3778,6 +3993,7 @@ def phase_tools(dev, card: str, tmp: str, run: dict, seqs: dict) -> dict:
     prior_cfg = config("probe_priors", "custom_shoes")
     probes = {
         "probe_vit_fused": lambda: probe_vit_fused.run(dev, ("xla", "flash")),
+        "probe_vit_attention": lambda: probe_vit_attention.run(dev),
         "probe_step_breakdown": lambda: probe_step_breakdown.run(dev),
         "probe_prior_stages": lambda: probe_prior_stages.run(prior_cfg, 0, dev),
         "probe_raster_stages": lambda: probe_raster_stages.run(dev),
@@ -3786,10 +4002,18 @@ def phase_tools(dev, card: str, tmp: str, run: dict, seqs: dict) -> dict:
         "probe_hash_breakdown": lambda: probe_hash_breakdown.run(dev),
     }
     for name, fn in probes.items():
-        res, secs[name], _ = timed(name, fn)
+        res, secs[name], launched = timed(name, fn)
         flat = [v for r in res.values() for v in (r.values() if isinstance(r, dict) else (r,))
                 if v is not None]
         check(flat and _finite(*flat), f"{name}: numbers not finite: {res}")
+        if name == "probe_vit_attention":
+            check(launched.get("K5c", 0) > 0 and launched.get("K5 dq", 0) > 0,
+                  f"probe_vit_attention: launches {launched}, expected the fused and the "
+                  "two-pass backward")
+            gap = res["flash"]["rel_grad_diff"]
+            check(gap <= VIT_PROBE_FLASH_MAX
+                  and all(r["rel_grad_diff"] <= VIT_PROBE_FACTOR * gap for r in res.values()),
+                  f"probe_vit_attention: gradients against xla's {res}, flash's gap {gap}")
 
     # -- warm_cache into a fresh build directory; weak_scaling at one rank --
     fresh = os.path.join(tmp, "warm_build")
@@ -3815,6 +4039,14 @@ def phase_tools(dev, card: str, tmp: str, run: dict, seqs: dict) -> dict:
     return quality
 
 
+T0 = time.time()
+
+
+def stamp(what: str) -> None:
+    """The script's seconds so far, after ``what``."""
+    print(f"[time] {time.time() - T0:.1f} s: {what} done", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the card; it never runs the CPU path)")
@@ -3826,15 +4058,20 @@ def main() -> None:
     kernel_rows = phase_kernels(dev, sc, smi)
     phase_adversarial_counts(dev, smi)
     kernel_rows.append(phase_depth_kernel(dev, smi))
+    stamp("phases 1, 2, 2b")
     kernel_rows.extend(phase_flash_kernels(dev, smi))
     kernel_rows.extend(phase_flash_kernels(dev, smi, torch.float32))
+    kernel_rows.extend(phase_fused_kernels(dev, smi))
+    kernel_rows.extend(phase_fused_kernels(dev, smi, torch.float32))
+    stamp("phase 2c")
     kernel_rows.extend(phase_silhouette_kernels(dev, sc, smi))
     kernel_rows.extend(phase_gather_kernels(dev, smi))
+    stamp("phases 2d, 2e")
     from dynhor_tpu_torch.models.dino import DinoConfig
 
     flash = DinoConfig(attn_impl="flash")
     written = phase_main(dev, sc, smi, kernel_rows, DinoConfig())
-    fused = phase_main(dev, sc, smi, kernel_rows, flash)
+    fused = phase_main(dev, sc, smi, kernel_rows, flash, again=True)
     print(
         f"[main] attn_impl xla vs flash: {written['ms_step']:.2f} vs {fused['ms_step']:.2f} "
         f"ms/step, peak {written['peak_gib']:.2f} vs {fused['peak_gib']:.2f} GiB; final losses "
@@ -3842,11 +4079,12 @@ def main() -> None:
         f"{float((written['rot6d'] - fused['rot6d']).abs().max()):.3g}, of the translations "
         f"{float((written['trans'] - fused['trans']).abs().max()):.3g} — {smi}", flush=True,
     )
-    f32 = phase_main(dev, sc, smi, kernel_rows, flash, "float32", steps=2)
+    f32 = phase_main(dev, sc, smi, kernel_rows, flash, "float32", steps=2, again=True)
     print(
         f"[main] flash, ViT in f32 against bf16: {f32['ms_step']:.2f} vs {fused['ms_step']:.2f} "
         f"ms/step, peak {f32['peak_gib']:.2f} vs {fused['peak_gib']:.2f} GiB — {smi}", flush=True,
     )
+    phase_fused_refine(dev, sc, smi, kernel_rows, fused, f32)
     remat = {impl: phase_remat(dev, sc, smi, cfg) for impl, cfg in (("xla", DinoConfig()),
                                                                      ("flash", flash))}
     print("[remat] policy x attn_impl: " + "; ".join(
@@ -3854,9 +4092,13 @@ def main() -> None:
         for impl, rs in remat.items() for p, r in rs.items()) + f" — {smi}", flush=True)
     for impl, dtype in (("xla", "float32"), ("flash", "bfloat16"), ("flash", "float32")):
         phase_small_reference(dev, impl, dtype)
+    for dtype in ("bfloat16", "float32"):
+        phase_small_reference(dev, "splash", dtype, fused=True)
+    stamp("phase 3")
     phase_joint(dev, sc, smi)
     phase_joint_small(dev)
     phase_profiler(dev, sc, smi, kernel_rows)
+    stamp("phases 3b, 3c")
     pw = phase_priors(dev, smi, kernel_rows, DinoConfig())
     pf = phase_priors(dev, smi, kernel_rows, flash)
     print(
@@ -3868,21 +4110,28 @@ def main() -> None:
     )
     for impl, dtype in (("xla", "float32"), ("flash", "bfloat16"), ("flash", "float32")):
         phase_priors_small(dev, impl, dtype)
+    stamp("phases 4, 4b")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         run = phase_run(dev, smi, kernel_rows, tmp)
         phase_run_small(dev)
+        stamp("phase 6")
         phase_multihyp(dev, smi, tmp, run)
         phase_vis(dev, smi, run)
         phase_multihyp_small(dev, smi)
+        stamp("phases 7, 7b")
         seqs = phase_multi(dev, smi, tmp, run)
         phase_multi_small(dev)
+        stamp("phase 8")
         phase_recon(dev, smi, tmp, run)
         phase_recon_bench(dev, smi)
         phase_recon_small(dev)
+        stamp("phase 9")
         phase_shard_nccl(dev, tmp)
         phase_shard(dev, smi, tmp, run, seqs)
+        stamp("phase 10")
         phase_tools(dev, smi, tmp, run, seqs)
+        stamp("phase 11")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     missing = [row["name"] for row in kernel_rows if row["launches"] <= 0]

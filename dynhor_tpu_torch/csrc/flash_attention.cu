@@ -4,7 +4,10 @@
 //   _flash_attention  (:202) -> jax.experimental.pallas.ops.tpu.flash_attention
 //                               (forward, dq and dkv kernels under its custom VJP)
 //   _splash_attention (:243) -> splash_attention_kernel.make_splash_mha
-//                               (forward; dq + dkv or the fused backward)
+//                               (forward; dq + dkv, or with
+//                               splash_fused_bwd (:288-293) the fused
+//                               backward, _splash_attention_bwd_dkv with
+//                               use_fused_bwd_kernel: flash_bwd_dkv_kernel<true>)
 // Both compute softmax(Q K^T * scale) V over the valid tokens and differ only
 // in TPU tiling and in how padded tokens are kept harmless, so one set of
 // kernels is the counterpart of both.  Nothing is padded here: the kernels
@@ -54,6 +57,20 @@
 //     registers beside dQ's 32 and spill.
 // - the backward is two passes without atomics, so it is the same from run
 //   to run; delta = rowsum(dO * O) is a small bytes-bound kernel before them.
+// Fused backward (K5c, DinoConfig.splash_fused_bwd): the dK/dV kernel that
+//   also writes, for its 128 keys, the partial dQ_kb = dS_kb K_kb * scale of
+//   every query, rounded to bf16, into a buffer of ceil(N / 128) partials,
+//   with no atomics; their sum in f32 (outside, as splash leaves it to XLA)
+//   is dq.  Five products a step instead of the two passes' seven.  Each
+//   consumer warpgroup stores its dS^T (its 64 keys x the step's 64 queries,
+//   bf16) to shared memory in the 128-byte swizzle that TMA gives V, and
+//   reads it back as wgmma's A operand through the descriptor's transpose
+//   (16-bit A may be MN-major): dQ_w = dS_w K_w (m64n64, K MN-major).
+//   Warpgroup 1 hands its f32 product to warpgroup 0 through shared memory
+//   (two named barriers, one step of slack), which adds the two 64-key
+//   halves, scales, rounds once and stores.  Bound at (8, 12, 1370, 64):
+//   five products, 0.117 ms at 989 TFLOP/s, against 2.9e8 bytes read and
+//   written (1.9e8 of them the partials), 0.086 ms at 3.35 TB/s.
 // What still holds it back: the exponentials, and the waits between them
 // and the products.  At head dim 64 a score costs 4 x 64 tensor-core
 // operations forward and one 2^x on the special-function unit, whose 16
@@ -119,6 +136,9 @@ constexpr int SMEM_FWD = BM * ROW + 2 * STAGES * BN * ROW + BARS * 8 + ALIGN;
 constexpr int SMEM_DKV = 2 * BM * ROW + 2 * STAGES * BQ * ROW + 2 * STAGES * BQ * 4 + BARS * 8
                          + ALIGN;
 constexpr int SMEM_DQ = 2 * BM * ROW + 2 * STAGES * BN * ROW + BARS * 8 + ALIGN;
+// The fused backward: the dK/dV kernel's, then (1 KB aligned) each consumer
+// warpgroup's dS^T tile and warpgroup 1's f32 dQ product.
+constexpr int SMEM_FUSED = SMEM_DKV + ALIGN + 2 * BQ * ROW + BQ * HD * 4;
 
 constexpr int ERR_ENCODE = 10000;
 constexpr int ERR_NO_ENCODER = 20000;
@@ -208,6 +228,17 @@ __device__ __forceinline__ void named_sync(int id) {
 
 __device__ __forceinline__ void named_arrive(int id) {
     asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+
+// A barrier of one warpgroup's 128 threads.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG) : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to wgmma (the async
+// proxy); a barrier after it makes everyone's visible.
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -310,6 +341,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
         "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+// D (64 x 64, f32) += A (64 x 16, shared, MN-major: stored transposed, 16
+// rows of 64 values) * B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -572,13 +623,17 @@ __global__ void __launch_bounds__(256) flash_delta_kernel(
 
 // dK and dV: one block per (128 keys, head, batch); a loop over 64-row query
 // tiles.  Consumer warpgroup w holds keys [64 w, 64 w + 64) of the block and
-// works on the transposed tiles S^T, P^T, dS^T (keys x queries).
+// works on the transposed tiles S^T, P^T, dS^T (keys x queries).  FUSED (the
+// fused backward) also writes the block's dQ partial of each query tile to
+// dqp (partial blockIdx.x, strides psb, psh, psn; pskb between partials).
+template <bool FUSED>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int H, int N, float scale, float scale_log2, i64 dksb, i64 dksh,
-    i64 dksn, i64 dvsb, i64 dvsh, i64 dvsn) {
+    bf16* __restrict__ dv, bf16* __restrict__ dqp, int H, int N, float scale, float scale_log2,
+    i64 dksb, i64 dksh, i64 dksn, i64 dvsb, i64 dvsh, i64 dvsn, i64 psb, i64 psh, i64 psn,
+    i64 pskb) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* sK = align_smem(smem_raw);
     unsigned char* sV = sK + BM * ROW;
@@ -590,6 +645,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
     uint64_t* kv_full = bar;
     uint64_t* full = bar + 1;
     uint64_t* empty = bar + 1 + STAGES;
+    // FUSED: dS^T of each consumer warpgroup (64 keys x 64 queries, bf16,
+    // 128-byte swizzle), then warpgroup 1's f32 dQ product of a step.
+    unsigned char* sS = align_smem(reinterpret_cast<unsigned char*>(bar + BARS));
+    float* sX = reinterpret_cast<float*>(sS + 2 * BQ * ROW);
 
     const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
     const int steps = (N + BQ - 1) / BQ;
@@ -652,9 +711,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
         const int cw = wg - 1, t = threadIdx.x % WG, lane = t & 31;
         const int r0 = (t >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
         const uint64_t dka = desc_k(sK + cw * 64 * ROW), dva = desc_k(sV + cw * 64 * ROW);
-        float dk_acc[32], dv_acc[32];
+        float dk_acc[32], dv_acc[32], dq_acc[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+        unsigned char* tds = sS + cw * BQ * ROW;  // FUSED: this warpgroup's dS^T
         mbar_wait(kv_full, 0);
         for (int it = 0; it < steps; ++it) {
             const int s = it % STAGES, q0 = it * BQ;
@@ -702,6 +762,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
                 sf[2 * j + 1] = pack_bf16(p[4 * j + 2] * (dpt[4 * j + 2] - d0),
                                           p[4 * j + 3] * (dpt[4 * j + 3] - d1));
             }
+            if constexpr (FUSED) {
+                // dS^T to shared memory: row r (a key) is 128 bytes of 64
+                // queries, its 16-byte piece j at piece j ^ (r % 8).  Keys
+                // >= N are 0 (their K rows are too, but their P is not).
+                const int key0 = k0 + cw * 64 + r0;
+                const uint32_t m0 = key0 < N ? ~0u : 0u, m1 = key0 + 8 < N ? ~0u : 0u;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int piece = (j ^ (r0 & 7)) << 4;
+                    *reinterpret_cast<uint32_t*>(tds + r0 * ROW + piece + 2 * c0) = sf[2 * j] & m0;
+                    *reinterpret_cast<uint32_t*>(tds + (r0 + 8) * ROW + piece + 2 * c0) =
+                        sf[2 * j + 1] & m1;
+                }
+                fence_async_shared();
+                warpgroup_sync(1 + cw);
+            }
             wgmma_fence();
             const uint64_t dgm = desc_mn(tg), dqm = desc_mn(tq);
 #pragma unroll
@@ -712,11 +788,48 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_kernel(
             for (int kk = 0; kk < 4; ++kk)
                 wgmma_rs_n64(dk_acc, sf[4 * kk], sf[4 * kk + 1], sf[4 * kk + 2],
                              sf[4 * kk + 3], dqm + kk * K16_MN);
+            if constexpr (FUSED) {
+                // dQ_w = dS_w K_w over the warpgroup's 64 keys: dS_w is dS^T
+                // read transposed, K the block's keys as MN-major B.
+                const uint64_t dsa = desc_mn(tds), kbm = desc_mn(sK + cw * 64 * ROW);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss_n64_mn(dq_acc, dsa + kk * K16_MN, kbm + kk * K16_MN, kk);
+            }
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(dv_acc);
             fence_regs(dk_acc);
             mbar_arrive(&empty[s]);
+            if constexpr (FUSED) {
+                fence_regs(dq_acc);
+                // The two halves' sum: warpgroup 1 hands its product over
+                // (barrier 3: it is in; barrier 4: warpgroup 0 has read it).
+                if (cw == 1) {
+                    if (it > 0) named_sync(4);
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) sX[i * WG + t] = dq_acc[i];
+                    named_arrive(3);
+                } else {
+                    named_sync(3);
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) dq_acc[i] += sX[i * WG + t];
+                    if (it + 1 < steps) named_arrive(4);
+                    bf16* out = dqp + blockIdx.x * pskb + b * psb + h * psh;
+                    const int row0 = q0 + r0, row1 = row0 + 8;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        if (row0 < N)
+                            *reinterpret_cast<__nv_bfloat162*>(out + row0 * psn + 8 * j + c0) =
+                                __floats2bfloat162_rn(dq_acc[4 * j] * scale,
+                                                      dq_acc[4 * j + 1] * scale);
+                        if (row1 < N)
+                            *reinterpret_cast<__nv_bfloat162*>(out + row1 * psn + 8 * j + c0) =
+                                __floats2bfloat162_rn(dq_acc[4 * j + 2] * scale,
+                                                      dq_acc[4 * j + 3] * scale);
+                    }
+                }
+            }
         }
         const int row0 = k0 + cw * 64 + r0, row1 = row0 + 8;
         dk += b * dksb + h * dksh;
@@ -944,7 +1057,8 @@ int prepare(const void* kernel, int smem, int (&done)[MAX_DEVICES]) {
     return 0;
 }
 
-int fwd_ready[MAX_DEVICES], dkv_ready[MAX_DEVICES], dq_ready[MAX_DEVICES];
+int fwd_ready[MAX_DEVICES], dkv_ready[MAX_DEVICES], dq_ready[MAX_DEVICES],
+    fused_ready[MAX_DEVICES];
 
 }  // namespace
 
@@ -985,12 +1099,35 @@ extern "C" int dynhor_flash_bwd_dkv(const void* q, const void* k, const void* v,
     if (!err) err = make_map(&mk, k, B, H, N, st + 3, BM);
     if (!err) err = make_map(&mv, v, B, H, N, st + 6, BM);
     if (!err) err = make_map(&mg, d_o, B, H, N, st + 9, BQ);
-    if (!err) err = prepare((const void*)flash_bwd_dkv_kernel, SMEM_DKV, dkv_ready);
+    if (!err) err = prepare((const void*)flash_bwd_dkv_kernel<false>, SMEM_DKV, dkv_ready);
     if (err) return err;
     const dim3 grid((N + BM - 1) / BM, H, B);
-    flash_bwd_dkv_kernel<<<grid, THREADS, SMEM_DKV, (cudaStream_t)stream>>>(
-        mq, mk, mv, mg, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, N,
-        sm_scale, sm_scale * LOG2E, st[12], st[13], st[14], st[15], st[16], st[17]);
+    flash_bwd_dkv_kernel<false><<<grid, THREADS, SMEM_DKV, (cudaStream_t)stream>>>(
+        mq, mk, mv, mg, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, nullptr,
+        H, N, sm_scale, sm_scale * LOG2E, st[12], st[13], st[14], st[15], st[16], st[17], 0, 0,
+        0, 0);
+    return (int)cudaGetLastError();
+}
+
+// The fused backward: dk, dv and dq_part, a (ceil(N / 128), B, H, N, 64)
+// buffer of partials; st holds q, k, v, d_o, dk, dv, then the strides of
+// one partial and, last, the stride between partials.
+extern "C" int dynhor_flash_bwd_fused(const void* q, const void* k, const void* v,
+                                      const void* d_o, const void* lse, const void* delta,
+                                      void* dq_part, void* dk, void* dv, int B, int H, int N,
+                                      float sm_scale, const long long* st, void* stream) {
+    CUtensorMap mq, mk, mv, mg;
+    int err = make_map(&mq, q, B, H, N, st, BQ);
+    if (!err) err = make_map(&mk, k, B, H, N, st + 3, BM);
+    if (!err) err = make_map(&mv, v, B, H, N, st + 6, BM);
+    if (!err) err = make_map(&mg, d_o, B, H, N, st + 9, BQ);
+    if (!err) err = prepare((const void*)flash_bwd_dkv_kernel<true>, SMEM_FUSED, fused_ready);
+    if (err) return err;
+    const dim3 grid((N + BM - 1) / BM, H, B);
+    flash_bwd_dkv_kernel<true><<<grid, THREADS, SMEM_FUSED, (cudaStream_t)stream>>>(
+        mq, mk, mv, mg, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+        (bf16*)dq_part, H, N, sm_scale, sm_scale * LOG2E, st[12], st[13], st[14], st[15], st[16],
+        st[17], st[18], st[19], st[20], st[21]);
     return (int)cudaGetLastError();
 }
 

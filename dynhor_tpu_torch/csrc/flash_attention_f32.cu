@@ -55,6 +55,20 @@
 //     dV += P^T dO and dK += dS^T Q (m64n64k8).
 // The backward is two passes without atomics, as in the bf16 kernels, so it
 // is the same from run to run; delta = rowsum(dO * O) is its own small pass.
+//   Fused backward (K5c, DinoConfig.splash_fused_bwd; the TPU kernel is
+//   splash's _splash_attention_bwd_dkv with use_fused_bwd_kernel): the
+//   dK/dV kernel that also writes, for its 128 keys, the partial
+//   dQ_kb = dS_kb K_kb * scale of every query into a buffer of ceil(N / 128)
+//   partials (summed outside).  32-bit operands come from shared memory
+//   K-major only, and a column tile of the block's K (64 KB of hi and lo
+//   parts) does not fit beside the 192 KB above, so each warpgroup computes
+//   dQ_w^T = K_w^T dS_w^T (m64n32k8, the head dim as M): K_w^T as register A
+//   operands read from K's row tile, dS^T (hi and lo) stored as a row tile
+//   of the step's 32 queries with the block's 128 keys along the
+//   contraction (32 KB more: 224 KB in all).  Warpgroup 1 hands its
+//   product to warpgroup 0 through its own half of that tile, and warpgroup
+//   0 adds, scales and stores.  Bound at (8, 12, 1370, 64): five products as
+//   3xTF32, 0.70 ms.
 //
 // Arithmetic, as ops/flash_attention's plain versions in f32: s = (q . k) *
 // scale, p = exp(s - m) with the accurate expf, the output divided by the row
@@ -97,6 +111,10 @@ __host__ __device__ constexpr int part_bytes(int rows) { return rows * HD * 4; }
 constexpr int SMEM_FWD = 2 * part_bytes(BM) + 4 * part_bytes(BN);
 constexpr int SMEM_DQ = 4 * part_bytes(BM) + 6 * part_bytes(BK);
 constexpr int SMEM_DKV = 4 * part_bytes(BM) + 8 * part_bytes(BK) + 2 * BK * 4;
+// The fused backward: the dK/dV kernel's and dS^T, a row tile of BK queries
+// with the block's BM keys along the contraction, hi and lo.
+constexpr int DS_BYTES = BK * BM * 4;
+constexpr int SMEM_FUSED = SMEM_DKV + 2 * DS_BYTES;
 
 // ---------------------------------------------------------------------------
 // Splitting, staging and wgmma.
@@ -299,6 +317,22 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], float a0, float a1, f
           "r"(__float_as_uint(a3)), "l"(b), "r"(acc));
 }
 
+// D (64 x 32) += A (64 x 8, TF32 in registers) B (32 x 8, shared).
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], float a0, float a1, float a2, float a3,
+                                           uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)), "r"(__float_as_uint(a2)),
+          "r"(__float_as_uint(a3)), "l"(b), "r"(acc));
+}
+
 // One 8-deep step of an f32 product with both operands in shared memory, as
 // three TF32 products, small terms first; `first` overwrites d.
 __device__ __forceinline__ void mma3_ss_n64(float (&d)[32], uint64_t ah, uint64_t al, uint64_t bh,
@@ -352,7 +386,8 @@ int prepare(const void* kernel, int smem, int (&done)[MAX_DEVICES]) {
     return 0;
 }
 
-int fwd_ready[MAX_DEVICES], dkv_ready[MAX_DEVICES], dq_ready[MAX_DEVICES];
+int fwd_ready[MAX_DEVICES], dkv_ready[MAX_DEVICES], dq_ready[MAX_DEVICES],
+    fused_ready[MAX_DEVICES];
 
 // ---------------------------------------------------------------------------
 // Kernels.
@@ -518,13 +553,17 @@ __global__ void __launch_bounds__(256) flash_delta_f32_kernel(
 // dK and dV: a block per (128 keys, head, batch); a loop over 32-query
 // steps (q, dO, and the rows' lse and delta).  Warpgroup w holds keys
 // [64 w, 64 w + 64) of the block and works on the transposed tiles S^T,
-// P^T, dS^T (keys x queries).
+// P^T, dS^T (keys x queries).  FUSED (the fused backward) also writes the
+// block's dQ partial of each step's queries to dqp (partial blockIdx.x,
+// strides psb, psh, psn; pskb between partials).
+template <bool FUSED>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ d_o, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int H, int N, float scale, i64 qsb, i64 qsh,
-    i64 qsn, i64 ksb, i64 ksh, i64 ksn, i64 vsb, i64 vsh, i64 vsn, i64 gsb, i64 gsh, i64 gsn,
-    i64 dksb, i64 dksh, i64 dksn, i64 dvsb, i64 dvsh, i64 dvsn) {
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dqp, int H, int N,
+    float scale, i64 qsb, i64 qsh, i64 qsn, i64 ksb, i64 ksh, i64 ksn, i64 vsb, i64 vsh, i64 vsn,
+    i64 gsb, i64 gsh, i64 gsn, i64 dksb, i64 dksh, i64 dksn, i64 dvsb, i64 dvsh, i64 dvsn,
+    i64 psb, i64 psh, i64 psn, i64 pskb) {
     extern __shared__ __align__(128) unsigned char smem[];
     unsigned char* sKh = smem;  // row tiles of the block's keys
     unsigned char* sKl = sKh + part_bytes(BM);
@@ -540,6 +579,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_f32_kernel(
     unsigned char* sGTl = sGTh + part_bytes(BK);
     float* sL = reinterpret_cast<float*>(sGTl + part_bytes(BK));  // lse
     float* sD = sL + BK;                                           // delta
+    // FUSED: dS^T as a row tile of the step's queries, the block's keys along
+    // the contraction: (query r, key c) at (c / 4) BK 16 + (r / 8) 128 +
+    // (r % 8) 16 + (c % 4) 4, so warpgroup w's keys start DS_BYTES / 2 w on.
+    unsigned char* sSh = reinterpret_cast<unsigned char*>(sD + BK);
+    unsigned char* sSl = sSh + DS_BYTES;
 
     const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
     const float* qb = q + b * qsb + h * qsh;
@@ -646,6 +690,82 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_f32_kernel(
         fence_regs(part);
 #pragma unroll
         for (int i = 0; i < 32; ++i) dk_acc[i] += part[i];
+        if constexpr (FUSED) {
+            // dS^T (hi in dpt, lo in sl; keys >= N as 0) to the row tile.
+            const int kr = wg * HALF + r0;  // the thread's keys kr and kr + 8 of the block
+            const bool ok0 = k0 + kr < N, ok1 = k0 + kr + 8 < N;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int qq = 8 * j + c0 + e;
+                    const int off = (kr >> 2) * BK * 16 + (qq >> 3) * 128 + (qq & 7) * 16 +
+                                    (kr & 3) * 4;
+                    const int off8 = off + 2 * BK * 16;  // key kr + 8
+                    *reinterpret_cast<float*>(sSh + off) = ok0 ? dpt[4 * j + e] : 0.0f;
+                    *reinterpret_cast<float*>(sSl + off) = ok0 ? sl[4 * j + e] : 0.0f;
+                    *reinterpret_cast<float*>(sSh + off8) = ok1 ? dpt[4 * j + 2 + e] : 0.0f;
+                    *reinterpret_cast<float*>(sSl + off8) = ok1 ? sl[4 * j + 2 + e] : 0.0f;
+                }
+            fence_async_shared();
+            __syncthreads();
+            // dQ_w^T (64 head-dim rows x 32 queries) = K_w^T dS_w^T: step j's
+            // A operand is K_w^T's (d, key 8 j + t) for d = r0, r0 + 8 and
+            // t = lane % 4, lane % 4 + 4, read from K's row tile, whose
+            // (key r, d) lies at (d / 4) 1024 + (r / 8) 128 + (r % 8) 16 +
+            // (d % 4) 4 in the warpgroup's half.
+            const unsigned char* kth = sKh + wg * part_bytes(HALF);
+            const unsigned char* ktl = sKl + wg * part_bytes(HALF);
+            const int ta = lane & 3;
+            float ah[8][4], al[8][4];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int key = 8 * j + ta + 4 * (u >> 1), d = r0 + 8 * (u & 1);
+                    const int off = (d >> 2) * 1024 + (key >> 3) * 128 + (key & 7) * 16 + (d & 3) * 4;
+                    ah[j][u] = *reinterpret_cast<const float*>(kth + off);
+                    al[j][u] = *reinterpret_cast<const float*>(ktl + off);
+                }
+            const uint64_t sh = desc(sSh + wg * (DS_BYTES / 2), BK * 16);
+            const uint64_t slo = desc(sSl + wg * (DS_BYTES / 2), BK * 16);
+            float dqt[16];
+            wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const uint64_t st8 = j * k8_rows(BK);
+                mma_rs_n32(dqt, al[j][0], al[j][1], al[j][2], al[j][3], sh + st8, j == 0 ? 0 : 1);
+                mma_rs_n32(dqt, ah[j][0], ah[j][1], ah[j][2], ah[j][3], slo + st8, 1);
+                mma_rs_n32(dqt, ah[j][0], ah[j][1], ah[j][2], ah[j][3], sh + st8, 1);
+            }
+            wgmma_commit();
+            wgmma_wait0();
+            fence_regs(dqt);
+            // Warpgroup 1's product, through its own half of sSh (which only
+            // it reads), to warpgroup 0, which adds, scales and stores:
+            // dqt[4 j + e] is (d r0, query 8 j + c0 + e), dqt[4 j + 2 + e]
+            // (d r0 + 8, the same query).
+            float* sX = reinterpret_cast<float*>(sSh + DS_BYTES / 2);
+            if (wg == 1) {
+#pragma unroll
+                for (int i = 0; i < 16; ++i) sX[i * WG + t] = dqt[i];
+            }
+            __syncthreads();
+            if (wg == 0) {
+                float* out = dqp + blockIdx.x * pskb + b * psb + h * psh;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int row = q0 + 8 * j + c0 + e;
+                        if (row < N) {
+                            out[row * psn + r0] = (dqt[4 * j + e] + sX[(4 * j + e) * WG + t]) * scale;
+                            out[row * psn + r0 + 8] =
+                                (dqt[4 * j + 2 + e] + sX[(4 * j + 2 + e) * WG + t]) * scale;
+                        }
+                    }
+            }
+        }
     }
     const int row0 = k0 + wg * HALF + r0, row1 = row0 + 8;
     dk += b * dksb + h * dksh;
@@ -811,13 +931,32 @@ extern "C" int dynhor_flash_bwd_dkv_f32(const void* q, const void* k, const void
                                         const void* d_o, const void* lse, const void* delta,
                                         void* dk, void* dv, int B, int H, int N, float sm_scale,
                                         const long long* st, void* stream) {
-    const int err = prepare((const void*)flash_bwd_dkv_f32_kernel, SMEM_DKV, dkv_ready);
+    const int err = prepare((const void*)flash_bwd_dkv_f32_kernel<false>, SMEM_DKV, dkv_ready);
     if (err) return err;
-    flash_bwd_dkv_f32_kernel<<<row_grid(B, H, N), THREADS, SMEM_DKV, (cudaStream_t)stream>>>(
+    flash_bwd_dkv_f32_kernel<false><<<row_grid(B, H, N), THREADS, SMEM_DKV,
+                                      (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, (const float*)lse,
-        (const float*)delta, (float*)dk, (float*)dv, H, N, sm_scale, st[0], st[1], st[2], st[3],
-        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15],
-        st[16], st[17]);
+        (const float*)delta, (float*)dk, (float*)dv, nullptr, H, N, sm_scale, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+        st[15], st[16], st[17], 0, 0, 0, 0);
+    return (int)cudaGetLastError();
+}
+
+// The fused backward: dk, dv and dq_part, a (ceil(N / 128), B, H, N, 64)
+// buffer of partials; st holds q, k, v, d_o, dk, dv, then the strides of
+// one partial and, last, the stride between partials.
+extern "C" int dynhor_flash_bwd_fused_f32(const void* q, const void* k, const void* v,
+                                          const void* d_o, const void* lse, const void* delta,
+                                          void* dq_part, void* dk, void* dv, int B, int H, int N,
+                                          float sm_scale, const long long* st, void* stream) {
+    const int err = prepare((const void*)flash_bwd_dkv_f32_kernel<true>, SMEM_FUSED, fused_ready);
+    if (err) return err;
+    flash_bwd_dkv_f32_kernel<true><<<row_grid(B, H, N), THREADS, SMEM_FUSED,
+                                     (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, (const float*)lse,
+        (const float*)delta, (float*)dk, (float*)dv, (float*)dq_part, H, N, sm_scale, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+        st[13], st[14], st[15], st[16], st[17], st[18], st[19], st[20], st[21]);
     return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,7 @@ SOURCES = {
         "dynhor_flash_delta": [_P, _P, _P, _I, _I, _I, _STRIDES, _P],
         "dynhor_flash_bwd_dkv": [_P] * 8 + [_I, _I, _I, _F, _STRIDES, _P],
         "dynhor_flash_bwd_dq": [_P] * 7 + [_I, _I, _I, _F, _STRIDES, _P],
+        "dynhor_flash_bwd_fused": [_P] * 9 + [_I, _I, _I, _F, _STRIDES, _P],
     }),
     # The f32 attention: the same C signatures, a library of its own.
     "flash_attention_f32": (list(_FLAGS), {
@@ -57,6 +58,7 @@ SOURCES = {
         "dynhor_flash_delta_f32": [_P, _P, _P, _I, _I, _I, _STRIDES, _P],
         "dynhor_flash_bwd_dkv_f32": [_P] * 8 + [_I, _I, _I, _F, _STRIDES, _P],
         "dynhor_flash_bwd_dq_f32": [_P] * 7 + [_I, _I, _I, _F, _STRIDES, _P],
+        "dynhor_flash_bwd_fused_f32": [_P] * 9 + [_I, _I, _I, _F, _STRIDES, _P],
     }),
     # Loads, adds and shuffles: nvcc's default.
     "gather_probe": (list(_FLAGS), {
@@ -596,6 +598,49 @@ def flash_bwd_dq_f32(q, k, v, d_o, lse, delta, sm_scale: float):
 
 
 flash_bwd_dq.launches = flash_bwd_dq_f32.launches = 0
+
+# Keys of one dQ partial of the fused backward: a block of its kernels.
+FUSED_KEYS = 128
+
+
+def _fused(wrapper, dtype, q, k, v, d_o, lse, delta, sm_scale):
+    b, h, n = _check_bwd(q, k, v, d_o, lse, delta, dtype)
+    dk, dv = _heads_out(k), _heads_out(v)
+    part = torch.empty((-(-n // FUSED_KEYS), b, h, n, _FLASH_HD), dtype=dtype, device=q.device)
+    if q.numel() == 0:
+        return part, dk, dv
+    strides = _map_strides({"q": q, "k": k, "v": v, "d_o": d_o}, dk, dv, part[0])
+    strides = (ctypes.c_longlong * (len(strides) + 1))(*strides, part.stride(0))
+    fn, name = _flash_entry(wrapper, dtype, "dynhor_flash_bwd_fused")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), part.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n,
+            sm_scale, strides, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise _flash_error(name, err)
+    wrapper.launches += 1
+    return part, dk, dv
+
+
+def flash_bwd_fused(q, k, v, d_o, lse, delta, sm_scale: float):
+    """K5c, the fused backward on the card: see
+    ops/flash_attention.flash_bwd_fused_plain.  Returns (dq_part
+    (ceil(N / 128), B, H, N, 64), dk, dv) in q's dtype.  f32 inputs go to
+    ``flash_bwd_fused_f32``."""
+    _check_heads("q", q)
+    if q.dtype == torch.float32:
+        return flash_bwd_fused_f32(q, k, v, d_o, lse, delta, sm_scale)
+    return _fused(flash_bwd_fused, torch.bfloat16, q, k, v, d_o, lse, delta, sm_scale)
+
+
+def flash_bwd_fused_f32(q, k, v, d_o, lse, delta, sm_scale: float):
+    """The f32 K5c (csrc/flash_attention_f32.cu)."""
+    return _fused(flash_bwd_fused_f32, torch.float32, q, k, v, d_o, lse, delta, sm_scale)
+
+
+flash_bwd_fused.launches = flash_bwd_fused_f32.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -12,8 +12,10 @@ kernels as (in, out) matrices applied as ``x @ W + b``, and
 selects the attention as in the JAX package: "xla" (the default) writes it
 out (matmul, softmax, matmul); "flash" and "splash", two TPU kernels there,
 both select ``ops/flash_attention.flash_attention`` here, one hand-written
-CUDA flash attention (bf16 at head dim 64 on the card, its plain version on
-the CPU).  There is no quiet switch back to "xla".  ``remat`` (the refine's
+CUDA flash attention (bf16 or f32 at head dim 64 on the card, its plain
+version on the CPU); ``splash_fused_bwd`` under "splash" selects its fused
+backward, as it selects splash's there.  There is no quiet switch back to
+"xla".  ``remat`` (the refine's
 ``RefineConfig.dino_remat``) is the JAX package's recomputation policy for
 the backward, keeping what it keeps (``_trunk``): "frozen" keeps each
 block's input, ``qkv``, mid residual and fc1 output; "dots" every matmul
@@ -54,10 +56,18 @@ class DinoConfig:
     smaller_edge_size: int = 518  # reference dino.py:5
     layer_norm_eps: float = 1e-6
     # "xla": attention written out (the name is the JAX package's); "flash"
-    # or "splash": ops/flash_attention.flash_attention, which picks its own
-    # tiles (the TPU tile knobs flash_block, splash_block and
-    # splash_fused_bwd have no counterpart).
+    # or "splash": ops/flash_attention.flash_attention.
     attn_impl: str = "xla"
+    # The JAX package's flash_block and splash_block (TPU VMEM tile sizes) are
+    # not taken: the Hopper kernels keep their own tiles
+    # (csrc/flash_attention.cu: 128 query rows or keys a block, 64- or
+    # 128-row steps), so a config that sets them fails instead of being
+    # ignored.
+    # "splash" only, as in the JAX package: the fused backward, one kernel
+    # for dK, dV and a dQ partial per key block (summed after it), instead
+    # of the dK/dV and dQ passes (ops/flash_attention.flash_bwd).  A kernel
+    # of its own with its own rounding points, not a tile size.
+    splash_fused_bwd: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in ("xla", "flash", "splash"):
@@ -180,8 +190,12 @@ def _attention(q: Tensor, k: Tensor, v: Tensor, hd: int) -> Tensor:
     return o * (1.0 / denom).to(dtype)
 
 
-def _attention_core(qkv: Tensor, num_heads: int, attn_impl: str) -> Tensor:
-    """(B, N, 3D) qkv -> (B, N, D) attention output, before the projection."""
+def _attention_core(
+    qkv: Tensor, num_heads: int, attn_impl: str, fused_bwd: bool = False
+) -> Tensor:
+    """(B, N, 3D) qkv -> (B, N, D) attention output, before the projection.
+    ``fused_bwd`` (the config's ``splash_fused_bwd``) counts under "splash"
+    only, as in the JAX package."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
@@ -189,7 +203,8 @@ def _attention_core(qkv: Tensor, num_heads: int, attn_impl: str) -> Tensor:
     if attn_impl == "xla":
         o = _attention(q, k, v, hd)
     else:  # q, k, v go in as the strided views they are
-        o = flash_attention(q, k, v, 1.0 / math.sqrt(hd))
+        o = flash_attention(q, k, v, 1.0 / math.sqrt(hd),
+                            fused_bwd=attn_impl == "splash" and fused_bwd)
     return o.transpose(1, 2).reshape(b, n, d)
 
 
@@ -207,7 +222,7 @@ def _recomputed(fn, *args):
 
 def _block(
     x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float, attn_impl: str = "xla",
-    frozen: bool = False,
+    fused_bwd: bool = False, frozen: bool = False,
 ) -> Tensor:
     """One pre-norm block.  With ``frozen`` (the JAX package's "frozen"
     policy) the layer norms and the attention core run as recomputed
@@ -218,7 +233,7 @@ def _block(
     seg = _recomputed if frozen else _call
     h = seg(_layer_norm, x, p["norm1_scale"], p["norm1_bias"], eps)
     qkv = h @ p["qkv_kernel"] + p["qkv_bias"]  # (B, N, 3D)
-    o = seg(_attention_core, qkv, num_heads, attn_impl)
+    o = seg(_attention_core, qkv, num_heads, attn_impl, fused_bwd)
     o = o @ p["proj_kernel"] + p["proj_bias"]
     x = x + p["ls1"] * o
     h = seg(_layer_norm, x, p["norm2_scale"], p["norm2_bias"], eps)
@@ -288,7 +303,7 @@ def _trunk(
     policy = remat if torch.is_grad_enabled() else False
     for i in range(cfg.depth):
         args = (x, {k: v[i] for k, v in blocks.items()}, cfg.num_heads,
-                cfg.layer_norm_eps, cfg.attn_impl)
+                cfg.layer_norm_eps, cfg.attn_impl, cfg.splash_fused_bwd)
         if policy == "frozen":
             x = _block(*args, frozen=True)
         elif policy == "dots":

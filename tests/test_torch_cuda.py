@@ -391,6 +391,65 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype):
             assert torch.equal(a, b)
 
 
+FUSED_WRAPPERS = {"bf16": kernels.flash_bwd_fused, "f32": kernels.flash_bwd_fused_f32}
+
+
+# The fused backward (K5c) at the tile edges of its dK/dV loop (64- and
+# 32-query steps, 128-key blocks) and at the fine step's N.
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [1, 31, 33, 63, 64, 65, 127, 128, 129, 333, 1370])
+def test_fused_kernel_matches_plain_version(cuda, n, dtype):
+    """The partials, their sum, dk and dv within the two-pass kernels'
+    tolerances of ``flash_bwd_fused_plain``; a second run gives the same
+    bits; the dtype's own fused kernel launches, no other."""
+    q, k, v, g = _block_views(cuda, 2, 3, n, 500 + n, DTYPES[dtype])
+    tol = TOLERANCE[dtype]
+    o_p, lse_p = FA.flash_fwd_plain(q, k, v, 0.125)
+    delta_p = FA.flash_delta_plain(o_p, g)
+    part_p, dk_p, dv_p = FA.flash_bwd_fused_plain(q, k, v, g, lse_p, delta_p, 0.125)
+    before = {name: fn.launches for name, fn in FUSED_WRAPPERS.items()}
+    part, dk, dv = kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, 0.125)
+    again = kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, 0.125)
+    assert {name: fn.launches - before[name] for name, fn in FUSED_WRAPPERS.items()} == {
+        name: 2 if name == dtype else 0 for name in FUSED_WRAPPERS}
+    assert part.shape == part_p.shape and part.dtype == q.dtype
+    for a, b in zip((part, dk, dv), again):
+        assert torch.equal(a, b)
+    _close(dv, dv_p, tol)
+    if n == 1:  # dS is 0 in exact arithmetic (see above)
+        for a in (part, part_p, dk, dk_p):
+            assert float(a.float().abs().max()) <= 1e-5
+    else:
+        _close(part, part_p, tol)
+        _close(FA.sum_dq_part(part), FA.sum_dq_part(part_p), tol)
+        _close(dk, dk_p, tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_flash_attention_autograd_on_the_card(cuda, dtype):
+    """``flash_attention(..., fused_bwd=True)``: the forward, delta and the
+    fused kernel once each, no dK/dV or dQ kernel; the same bits from run to
+    run; within the dtype's tolerance of the CPU's plain fused backward."""
+    q, k, v, g = _block_views(cuda, 2, 2, 300, 8, DTYPES[dtype])
+    before = _k5_launches()
+    fused_before = FUSED_WRAPPERS[dtype].launches
+
+    def run(q, k, v, g):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = FA.flash_attention(*xs, 0.125, fused_bwd=True)
+        o.backward(g)
+        return [o.detach()] + [x.grad for x in xs]
+
+    first = run(q, k, v, g)
+    ran = [1, 1, 0, 0]
+    assert _k5_ran(before) == ((ran, [0] * 4) if dtype == "bf16" else ([0] * 4, ran))
+    assert FUSED_WRAPPERS[dtype].launches - fused_before == 1
+    for a, b in zip(first, run(q, k, v, g)):
+        assert torch.equal(a, b)
+    for a, e in zip(first, run(q.cpu(), k.cpu(), v.cpu(), g.cpu())):
+        _close(a.cpu(), e, TOLERANCE[dtype])
+
+
 def test_flash_wrappers_refuse_layouts_tma_cannot_read(cuda):
     """A view whose rows are not 16-byte aligned raises in each wrapper
     before any launch; the launch counts stay as they were."""
@@ -398,13 +457,13 @@ def test_flash_wrappers_refuse_layouts_tma_cannot_read(cuda):
     padded = torch.zeros((1, 2, 8, 68), device=cuda, dtype=torch.bfloat16)[..., :64]
     s = torch.zeros((1, 2, 8), device=cuda)
     wrappers = (kernels.flash_fwd, kernels.flash_bwd_delta, kernels.flash_bwd_dkv,
-                kernels.flash_bwd_dq)
+                kernels.flash_bwd_dq, kernels.flash_bwd_fused)
     before = [f.launches for f in wrappers]
     with pytest.raises(ValueError, match="16 bytes"):
         kernels.flash_fwd(x, padded, x, 0.125)
     with pytest.raises(ValueError, match="16 bytes"):
         kernels.flash_bwd_delta(x, padded)
-    for fn in (kernels.flash_bwd_dkv, kernels.flash_bwd_dq):
+    for fn in (kernels.flash_bwd_dkv, kernels.flash_bwd_dq, kernels.flash_bwd_fused):
         with pytest.raises(ValueError, match="16 bytes"):
             fn(x, x, x, padded, s, s, 0.125)
     assert [f.launches for f in wrappers] == before

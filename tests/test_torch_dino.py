@@ -1,8 +1,11 @@
 """Port ViT vs the JAX package with the JAX parameters carried across by
 ``params_from_jax``, at a tiny config (patch 8, dim 32, depth 2), in f32:
 tokens and d(tokens)/d(rgb) within 1e-4, for each ``attn_impl`` of the port
-("flash" and "splash" run the flash attention's plain versions on the CPU;
-the JAX side runs "xla" there whatever it is asked for)."""
+("flash" and "splash" run the flash attention's plain versions on the CPU,
+"splash" with ``splash_fused_bwd`` the fused backward's; the JAX side runs
+"xla" there whatever it is asked for)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +18,7 @@ from dynhor_tpu_torch.models import dino as TD
 TINY = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, smaller_edge_size=32)
 
 
-def _params(pos_grid, attn_impl="xla"):
+def _params(pos_grid, attn_impl="xla", fused_bwd=False):
     cfg_j = JD.DinoConfig(pos_grid=pos_grid, **TINY)
     params_j = JD.init_params(jax.random.PRNGKey(0), cfg_j)
     # Non-trivial LayerNorm / LayerScale values, so every parameter matters.
@@ -23,19 +26,22 @@ def _params(pos_grid, attn_impl="xla"):
     params_j = jax.tree.map(
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params_j
     )
-    cfg_t = TD.DinoConfig(pos_grid=pos_grid, attn_impl=attn_impl, **TINY)
+    cfg_t = TD.DinoConfig(pos_grid=pos_grid, attn_impl=attn_impl, splash_fused_bwd=fused_bwd,
+                          **TINY)
     return cfg_j, params_j, cfg_t, TD.params_from_jax(jax.tree.map(np.asarray, params_j))
 
 
 # pos_grid 4 = the token grid (no interpolation); 3 interpolates the
 # position embedding bicubically.
 @pytest.mark.parametrize(
-    "pos_grid,attn_impl",
-    [(4, "xla"), (3, "xla"), (4, "flash"), (3, "flash"), (4, "splash"), (3, "splash")],
-    ids=["4", "3", "4-flash", "3-flash", "4-splash", "3-splash"],
+    "pos_grid,attn_impl,fused_bwd",
+    [(4, "xla", False), (3, "xla", False), (4, "flash", False), (3, "flash", False),
+     (4, "splash", False), (3, "splash", False), (4, "splash", True), (3, "splash", True)],
+    ids=["4", "3", "4-flash", "3-flash", "4-splash", "3-splash", "4-splash-fused-bwd",
+         "3-splash-fused-bwd"],
 )
-def test_tokens_from_crop_and_input_gradient(pos_grid, attn_impl):
-    cfg_j, params_j, cfg_t, params_t = _params(pos_grid, attn_impl)
+def test_tokens_from_crop_and_input_gradient(pos_grid, attn_impl, fused_bwd):
+    cfg_j, params_j, cfg_t, params_t = _params(pos_grid, attn_impl, fused_bwd)
     rng = np.random.default_rng(1)
     rgb = rng.random((2, 3, 48, 48)).astype(np.float32)
     ct = rng.standard_normal((2, 16, 32)).astype(np.float32)
@@ -50,6 +56,53 @@ def test_tokens_from_crop_and_input_gradient(pos_grid, attn_impl):
     (tok_t * torch.tensor(ct)).sum().backward()
     np.testing.assert_allclose(tok_t.detach().numpy(), np.asarray(tok_j), atol=1e-4)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), atol=1e-4)
+
+
+def test_config_takes_the_jax_packages_attention_knobs():
+    """The port's DinoConfig has the JAX one's fields and defaults but the TPU
+    tile sizes, ``splash_fused_bwd`` among them, builds from the same
+    keywords, refuses the tile sizes rather than ignore them, and rejects
+    what the JAX one rejects (an unknown ``attn_impl``)."""
+    tiles = ("flash_block", "splash_block")
+    fields = [f.name for f in dataclasses.fields(JD.DinoConfig) if f.name not in tiles]
+    assert [f.name for f in dataclasses.fields(TD.DinoConfig)] == fields
+    assert {n: getattr(TD.DinoConfig(), n) for n in fields} == {
+        n: getattr(JD.DinoConfig(), n) for n in fields}
+    assert TD.DinoConfig().splash_fused_bwd is False
+    for kw in (dict(attn_impl="splash", splash_fused_bwd=True),
+               dict(attn_impl="flash", splash_fused_bwd=True)):
+        cfg_j, cfg_t = JD.DinoConfig(**kw), TD.DinoConfig(**kw)
+        assert {n: getattr(cfg_t, n) for n in fields} == {n: getattr(cfg_j, n) for n in fields}
+    for kw in (dict(attn_impl="splash", splash_block=512, splash_fused_bwd=True),
+               dict(attn_impl="flash", flash_block=256)):
+        JD.DinoConfig(**kw)
+        with pytest.raises(TypeError, match="_block"):
+            TD.DinoConfig(**kw)
+    for bad in ("pallas", "Splash", ""):
+        with pytest.raises(ValueError, match="attn_impl"):
+            JD.DinoConfig(attn_impl=bad)
+        with pytest.raises(ValueError, match="attn_impl"):
+            TD.DinoConfig(attn_impl=bad)
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "splash"])
+def test_fused_bwd_counts_under_splash_only(attn_impl, monkeypatch):
+    """``splash_fused_bwd`` selects the fused backward under "splash" and is
+    ignored under "flash", as the JAX package passes it to splash alone."""
+    from dynhor_tpu_torch.ops import flash_attention as FA
+
+    seen = []
+    real = FA.flash_bwd
+
+    def spy(*args):
+        seen.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(FA, "flash_bwd", spy)
+    _, _, cfg_t, params_t = _params(4, attn_impl, fused_bwd=True)
+    x = torch.rand((2, 3, 48, 48), generator=torch.Generator().manual_seed(0), requires_grad=True)
+    TD.forward_tokens_from_crop(params_t, x, cfg_t).sum().backward()
+    assert seen == [attn_impl == "splash"] * TINY["depth"]
 
 
 def test_extract_features_matches():

@@ -173,6 +173,7 @@ def test_attn_impl_names():
     with pytest.raises(ValueError, match="attn_impl must be"):
         TD.DinoConfig(attn_impl="flsh")
     assert not hasattr(TD.DinoConfig(), "flash_block")  # TPU tile knobs are not ported
+    assert TD.DinoConfig().splash_fused_bwd is JD.DinoConfig().splash_fused_bwd is False
 
 
 @pytest.mark.parametrize("which", ["flash_fwd", "flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"])

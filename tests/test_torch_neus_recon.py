@@ -17,9 +17,18 @@ a checkpoint at steps 2 and 3: orbax directories there, ``step_<N>.pt``
 here), and the two meshes' vertex sets within a Chamfer distance of 1e-3
 of each other.  Then the port resumes from its step-3 checkpoint with
 ``num_steps`` 3: no step runs and the same mesh comes out.
+
+``recon.py`` extracts its mesh through the JAX package's native library,
+which is built for this module alone, into its own temporary directory
+(``jax_native``, as in tests/test_torch_neus_extract.py): its loader
+compiles straight onto one shared path, which the suite's parallel workers
+would otherwise write and load at once, and a worker that loads a
+half-written file keeps ``None`` and falls back to the numpy marching path
+for the rest of the process.
 """
 import os
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -28,6 +37,7 @@ import pytest
 import torch
 import yaml
 
+from dynhor_tpu import native as JN
 from dynhor_tpu_torch import recon as TREC
 from dynhor_tpu_torch.neus import draws as TDR
 from dynhor_tpu_torch.tools import make_demo_data as MD
@@ -45,6 +55,21 @@ def _torch_on_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's ``marching.cpp`` compiled into this module's own
+    directory, and its loader pointed there (``_LIB``, with ``_lib`` and
+    ``_tried`` reset) until the module ends."""
+    lib = tmp_path_factory.mktemp("jax_native") / "libmarching.so"
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", JN._SRC, "-o", str(lib)],
+                   check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JN, "_LIB", str(lib))
+        mp.setattr(JN, "_lib", None)
+        mp.setattr(JN, "_tried", False)
+        yield str(lib)
 
 
 @pytest.fixture(scope="module")
@@ -111,6 +136,7 @@ def test_recon_main_matches_recon_py(twin, monkeypatch, capsys):
     monkeypatch.setattr(JF, "init_variance", lambda init_val=0.3: jnp.asarray(np.float32(init_val)))
     monkeypatch.setattr(sys, "argv", ["recon.py", "--config_path", cfg, "--exps_root",
                                       str(root / "jax")])
+    assert JN.load_marching() is not None, f"the JAX package's library built at {JN._LIB} loads"
     JREC.main()
     text_j = capsys.readouterr().out
     monkeypatch.setattr(TDR, "draw", jax_draw)

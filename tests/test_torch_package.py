@@ -32,6 +32,7 @@ run_slice = {"dynhor_tpu_torch." + m for m in (
     "tools.ingest_data", "tools.make_kettle_mesh", "tools.make_dino_checkpoint",
     "tools.convert_dino_checkpoint", "tools.ablate_oracle_init", "tools.ablate_multihyp",
     "tools.ab_prescreen", "tools.ablate_fine_edge", "tools.probe_vit_fused",
+    "tools.probe_vit_attention",
     "tools.probe_step_breakdown", "tools.probe_prior_stages", "tools.probe_raster_stages",
     "tools.probe_hash_step", "tools.probe_hash_breakdown", "tools.warm_cache",
     "tools.weak_scaling", "tools.multihost_input_demo")}

@@ -170,6 +170,29 @@ def test_what_each_policy_keeps(vit, attn_impl, dtype):
         assert sum(_square(s) for _, s in kept[False].values()) >= TINY["depth"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_frozen_keeps_the_same_under_the_fused_backward(vit, dtype):
+    """``attn_impl="splash"`` with ``splash_fused_bwd`` under "frozen" keeps
+    exactly what the two-pass flash attention keeps (the same storages by
+    size, none of them N x N): the backward changes, not what it is given.
+    In f32 the image gradient is the two-pass one's within 1e-6."""
+    _, _, params, rgb, ct = vit
+    flash = TD.DinoConfig(attn_impl="flash", **TINY)
+    fused = TD.DinoConfig(attn_impl="splash", splash_fused_bwd=True, **TINY)
+
+    def kept(cfg):
+        storages = _kept(params, cfg, rgb, "frozen", dtype).values()
+        assert not any(_square(shapes) for _, shapes in storages)
+        return sorted(nb for nb, _ in storages)
+
+    assert kept(fused) == kept(flash)
+    if dtype == torch.float32:
+        tok0, g0 = _grad(params, flash, rgb, ct, "frozen")
+        tok, g = _grad(params, fused, rgb, ct, "frozen")
+        np.testing.assert_array_equal(tok, tok0)
+        np.testing.assert_allclose(g, g0, rtol=1e-6, atol=1e-6 * np.abs(g0).max())
+
+
 def test_saved_tensor_hooks_see_block_inputs_and_frozen_saves(vit):
     """What autograd packs (checkpoint inputs included), weights aside: the
     patch embedding's and the final layer norm's tensors under every policy,

@@ -221,9 +221,9 @@ def test_slice_with_flash_attention(chains, monkeypatch):
     calls = []
     real = dino_mod.flash_attention
 
-    def counting(q, k, v, sm_scale):
+    def counting(q, k, v, sm_scale, **kw):
         calls.append(q.shape[2])
-        return real(q, k, v, sm_scale)
+        return real(q, k, v, sm_scale, **kw)
 
     monkeypatch.setattr(dino_mod, "flash_attention", counting)
     j, _ = chains

@@ -361,6 +361,35 @@ def test_probe_vit_fused_pieces():
         torch.testing.assert_close(g, x.grad, rtol=1e-6, atol=1e-9, msg=k)
 
 
+def test_probe_vit_attention_pieces():
+    """Each variant's image gradient (the fine loss's 1 - cos, under
+    "frozen", the attention's layer scale 1) equals the written-out
+    attention's and the whole function's, taken here by hand;
+    ``DYNHOR_PROBE_ONLY`` keeps ``xla`` beside the variants it names."""
+    from dynhor_tpu_torch.models import dino as TD
+    from dynhor_tpu_torch.tools import probe_vit_attention as PA
+
+    cfg = TD.DinoConfig(**dict(TINY_VIT, embed_dim=64, depth=2))
+    ps = PA.pieces("cpu", frames=2, edge=32, cfg=cfg, dtype=torch.float32)
+    assert list(ps) == ["xla", "flash", "splash", "splash fused-bwd"]
+    grads = {k: fn() for k, fn in ps.items()}
+    params, _ = TD.load_params(None, cfg)
+    params["blocks"]["ls1"] = torch.ones_like(params["blocks"]["ls1"])
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 3, 32, 32), generator=gen).requires_grad_(True)
+    gt = torch.randn((2, 16, 64), generator=gen)
+    f = TD.forward_tokens(params, x, cfg, remat="frozen")
+    cos = (gt * f).sum(-1) / (gt.norm(dim=-1) * f.norm(dim=-1) + 1e-6)
+    (1.0 - cos).mean().backward()
+    for k, g in grads.items():
+        assert g.shape == (2, 3, 32, 32)
+        torch.testing.assert_close(g, x.grad, rtol=1e-5, atol=1e-7, msg=k)
+    assert PA.selected(None) == list(PA.VARIANTS)
+    assert PA.selected("splash fused-bwd;nope") == ["xla", "splash fused-bwd"]
+    assert list(PA.pieces("cpu", 1, 32, cfg, names=["xla", "flash"], dtype=torch.float32)) == [
+        "xla", "flash"]
+
+
 def test_probe_step_breakdown_pieces(box_obj):
     from dynhor_tpu_torch.models import dino as TD
     from dynhor_tpu_torch.tools import probe_step_breakdown as PS
