@@ -320,18 +320,24 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def turns(fns: dict, rounds: int = 4, reps: int = 10) -> dict:
+    """Each callable of ``fns`` timed in turns, in their order and then
+    reversed, ``rounds`` times (a, b, c, c, b, a, ...), each sample a
+    ``cuda_ms`` over ``reps`` launches; returns {name: (median, samples)}."""
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                got[name].append(cuda_ms(fns[name], reps))
+    return {name: (float(np.median(v)), v) for name, v in got.items()}
+
+
 def in_turns(kernel, library, rounds: int = 2, reps: int = 10) -> tuple[float, float, list, list]:
     """Kernel and library timed in turns (kernel, library, library, kernel)
-    ``rounds`` times, each sample a ``cuda_ms`` over ``reps`` launches;
-    returns (kernel median, library median, kernel samples, library
-    samples)."""
-    ks, ls = [], []
-    for _ in range(rounds):
-        ks.append(cuda_ms(kernel, reps))
-        ls.append(cuda_ms(library, reps))
-        ls.append(cuda_ms(library, reps))
-        ks.append(cuda_ms(kernel, reps))
-    return float(np.median(ks)), float(np.median(ls)), ks, ls
+    ``rounds`` times; returns (kernel median, library median, kernel
+    samples, library samples)."""
+    res = turns({"kernel": kernel, "library": library}, rounds, reps)
+    return res["kernel"][0], res["library"][0], res["kernel"][1], res["library"][1]
 
 
 K5_KEYS = ("K5 fwd", "K5 delta", "K5 dkv", "K5 dq")
@@ -998,12 +1004,18 @@ def fused_parity(q, k, v, g, scale, where: str):
     return (o_p, lse_p, delta_p), errs
 
 
+# K5c's token counts: K5's tile edges, three key blocks with a ragged last
+# one (300) and the fine-edge ablation's 252 crop (325).
+K5C_EDGE_N = K5_EDGE_N + (300, 325)
+
+
 def phase_fused_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> list[dict]:
     """K5c of ``dtype`` against its plain version on the card at the fine
     step's shape, the prescreen's (50, 12, 65, 64) and the tile edges
-    (``K5_EDGE_N``, B 2, H 3), two runs bit for bit; then timed in turns
-    against ``scaled_dot_product_attention``'s backward and against the
-    two-pass backward.  Returns the row of the fine step's shape.
+    (``K5C_EDGE_N``, B 2, H 3), two runs bit for bit; then the kernel alone,
+    the whole fused backward, the two-pass backward and
+    ``scaled_dot_product_attention``'s backward timed in turns.  Returns the
+    row of the fine step's shape.
 
     Tolerances as ``k5_parity``'s.  The bound counts the five products of
     the backward (S, dP, dV, dK, dQ) and the bytes of q, k, v, dO, the rows'
@@ -1013,7 +1025,7 @@ def phase_fused_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
 
     f32 = dtype == torch.float32
     tname, sfx = ("f32", " f32") if f32 else ("bf16", "")
-    for n in K5_EDGE_N:
+    for n in K5C_EDGE_N:
         q, k, v, g = block_views(2, 3, n, 64, 200 + n, dev, dtype)
         _, errs = fused_parity(q, k, v, g, 0.125, f"(2, 3, {n}, 64) {tname}")
         print(f"[k5c] {tname} tile edge N={n} (B=2, H=3): within tolerance, bit-identical over "
@@ -1046,11 +1058,12 @@ def phase_fused_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
         ql, kl, vl = (x.detach().contiguous().requires_grad_(True) for x in (q, k, v))
         gl = g.contiguous()
         out_l = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl)
-        whole, lib, whole_s, lib_s = in_turns(
-            fused_bwd, lambda: torch.autograd.grad(out_l, (ql, kl, vl), gl, retain_graph=True))
-        whole2, two, whole2_s, two_s = in_turns(fused_bwd, two_pass_bwd)
-        ms, _, ms_s, _ = in_turns(
-            lambda: kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, scale), two_pass_bwd)
+        res = turns({
+            "K5c": lambda: kernels.flash_bwd_fused(q, k, v, g, lse_p, delta_p, scale),
+            "fused": fused_bwd, "two-pass": two_pass_bwd,
+            "library": lambda: torch.autograd.grad(out_l, (ql, kl, vl), gl, retain_graph=True),
+        })
+        ms = res["K5c"][0]
         plain = cuda_ms(lambda: FA.flash_bwd_fused_plain(q, k, v, g, lse_p, delta_p, scale), 3)
         prod = 2 * b * h * n * n * d
         tensor = b * h * n * d * q.element_size()
@@ -1062,25 +1075,28 @@ def phase_fused_kernels(dev, card: str, dtype: torch.dtype = torch.bfloat16) -> 
             f"dynhor_tpu_torch/csrc/flash_attention{'_f32' if f32 else ''}.cu",
             "dynhor_tpu/models/dino.py:288 _splash_attention, use_fused_bwd_kernel: "
             "splash_attention_kernel.py:1857 _splash_attention_bwd_dkv",
-            max(errs["dq"][0], errs["dk"][0], errs["dv"][0]), ms, plain, ops, nbytes, peak, lib,
+            max(errs["dq"][0], errs["dk"][0], errs["dv"][0]), ms, plain, ops, nbytes, peak,
+            res["library"][0],
         )
-        row["whole_bwd_ms"], row["two_pass_bwd_ms"] = whole, two
+        row["whole_bwd_ms"], row["two_pass_bwd_ms"] = res["fused"][0], res["two-pass"][0]
         simt = ""
         if f32:
             row["bound_f32_simt_ms"] = max(ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
             simt = f"; on the CUDA cores {row['bound_f32_simt_ms']:.5f} ms"
         print(
-            f"[k5c] {tname} N={n}: the fused kernel {ms:.4f} ms ({[round(x, 4) for x in ms_s]}), "
+            f"[k5c] {tname} N={n}: the fused kernel {ms:.4f} ms, "
             f"{100 * row['bound_ms'] / ms:.1f} % of its bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']}: {ops:.4e} ops, {nbytes} bytes with {parts} partials{simt}); "
-            f"plain {plain:.3f} ms — {card}", flush=True)
+            f"({row['bound_by']}: {ops:.4e} ops, {nbytes} bytes with {parts} partials of "
+            f"{kernels.FUSED_KEYS} keys, {parts * tensor} bytes{simt}); plain {plain:.3f} ms "
+            f"— {card}", flush=True)
         print(
-            f"[k5c] {tname} N={n} whole backward in turns (fused, other, other, fused, twice), "
-            f"ms: fused (delta + K5c + the partials' sum) {whole:.4f} "
-            f"{[round(x, 4) for x in whole_s]} against scaled_dot_product_attention's backward "
-            f"{lib:.4f} {[round(x, 4) for x in lib_s]}; fused {whole2:.4f} "
-            f"{[round(x, 4) for x in whole2_s]} against the two-pass backward (delta + dK/dV + "
-            f"dQ) {two:.4f} {[round(x, 4) for x in two_s]} — {card}", flush=True)
+            f"[k5c] {tname} N={n} in turns ({len(res['fused'][1])} samples each), medians, ms: "
+            + "; ".join(f"{name} {med:.4f} {[round(x, 4) for x in v]}"
+                        for name, (med, v) in res.items())
+            + f"; fused / two-pass {res['fused'][0] / res['two-pass'][0]:.3f}, fused / library "
+            f"{res['fused'][0] / res['library'][0]:.3f} (fused: delta + K5c + the partials' "
+            f"sum; two-pass: delta + dK/dV + dQ; library: scaled_dot_product_attention's "
+            f"backward) — {card}", flush=True)
     return [row]
 
 

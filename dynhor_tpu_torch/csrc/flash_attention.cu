@@ -71,6 +71,14 @@
 //   halves, scales, rounds once and stores.  Bound at (8, 12, 1370, 64):
 //   five products, 0.117 ms at 989 TFLOP/s, against 2.9e8 bytes read and
 //   written (1.9e8 of them the partials), 0.086 ms at 3.35 TB/s.
+//   What holds it back: the partials' bytes, 1.9e8 written here and read
+//   again by their sum, which make the whole fused backward about 1.3 x
+//   the two passes on an H100.  Summing dQ across a thread-block cluster
+//   of key blocks in shared memory (3 partials instead of 11) was measured
+//   slower, 0.46-0.68 ms for clusters of 1-6 against this kernel's 0.39:
+//   one block fills an SM, so an H100 holds only 30 clusters of 4 (120 of
+//   132 SMs) or 17 of 6, and the exchange itself cost 0.07 ms at clusters
+//   of 1.  A block small enough for two an SM is untried.
 // What still holds it back: the exponentials, and the waits between them
 // and the products.  At head dim 64 a score costs 4 x 64 tensor-core
 // operations forward and one 2^x on the special-function unit, whose 16

@@ -599,7 +599,9 @@ def flash_bwd_dq_f32(q, k, v, d_o, lse, delta, sm_scale: float):
 
 flash_bwd_dq.launches = flash_bwd_dq_f32.launches = 0
 
-# Keys of one dQ partial of the fused backward: a block of its kernels.
+# Keys of one dQ partial of the fused backward: a block of its kernels.  A
+# thread-block cluster summing its blocks' dQ on chip (fewer partials) was
+# slower on an H100: see the fused backward's notes in csrc/flash_attention.cu.
 FUSED_KEYS = 128
 
 

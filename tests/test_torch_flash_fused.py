@@ -8,8 +8,13 @@ tests/test_torch_flash.py runs the splash kernel.  At N 260 both sides cut
 the keys into three blocks (the port's of 128 keys, the JAX side's of
 ``block`` 128 after padding to 384), so each sums three dQ partials.
 Layouts: JAX (B, N, H, hd), port (B, H, N, hd).  Tolerances: 2e-5 against
-the splash kernel (f32 sums in another order, as tests/test_dino.py);
-against the two-pass backward 1e-6 in f32 (the same products; each
+the splash kernel in f32 (f32 sums in another order, as tests/test_dino.py);
+in bf16, both cutting the keys at the same 128-key blocks, 2^-7 of the
+largest dq (both round each block's partial to bf16 once and their sum
+once, at the same points, but each side's own forward gives o and the
+log-sum-exp, whose last-bit differences move some dS across a bf16
+rounding boundary: one bf16 step, 2^-8 relative, 2^-7 at a binade's lower
+edge); against the two-pass backward 1e-6 in f32 (the same products; each
 partial's scale is a power of two) and 2^-7 of the largest value in bf16
 (each partial rounds to bf16 before the sum, the two-pass dq once).
 """
@@ -63,6 +68,41 @@ def test_fused_matches_jax_splash_fused_kernel(monkeypatch):
         np.testing.assert_allclose(qkv.grad[:, :, i].numpy(), e, atol=2e-5, err_msg=f"d{name}")
 
 
+def test_fused_bf16_matches_jax_splash_fused_at_the_same_blocks(monkeypatch):
+    """bf16 dq of the port's plain fused backward against the JAX fused
+    splash backward at ``block`` 128, N 300 (three partials on both sides:
+    keys [0, 128), [128, 256), [256, 300)), at 2^-7 of the largest dq."""
+    import jax
+    from jax.experimental.pallas.ops.tpu.splash_attention import (
+        splash_attention_kernel as splash,
+    )
+
+    real = splash.make_splash_mha
+
+    def interp_mha(mask, **kw):
+        kw["interpret"] = True
+        return real(mask, **kw)
+
+    monkeypatch.setattr(splash, "make_splash_mha", interp_mha)
+    b, n, h, hd = 2, 300, 3, 16
+    q, k, v, ct = (jnp.asarray(x, jnp.bfloat16) for x in _inputs(b, n, h, hd, seed=7))
+
+    def jax_fn(q, k, v):
+        return JD._splash_attention(q, k, v, hd, block=FA.PLAIN_BLOCK, fused_bwd=True)
+
+    _, vjp = jax.vjp(jax_fn, q, k, v)
+    dq_j = np.asarray(vjp(ct)[0].astype(jnp.float32))
+    qt, kt, vt, gt = (torch.tensor(np.asarray(x.astype(jnp.float32))).bfloat16()
+                      .permute(0, 2, 1, 3) for x in (q, k, v, ct))
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = FA.flash_fwd_plain(qt, kt, vt, scale)
+    delta = FA.flash_delta_plain(o, gt)
+    part, _, _ = FA.flash_bwd_fused_plain(qt, kt, vt, gt, lse, delta, scale)
+    assert part.shape[0] == 3 and part.dtype == torch.bfloat16
+    dq = FA.sum_dq_part(part).float().permute(0, 2, 1, 3).numpy()
+    assert np.abs(dq - dq_j).max() <= 2.0**-7 * np.abs(dq_j).max()
+
+
 def _backwards(b, h, n, hd, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     q, k, v, g = (torch.randn((b, h, n, hd), generator=gen).to(dtype) for _ in range(4))
@@ -86,6 +126,20 @@ def test_fused_plain_matches_two_pass_plain(n, dtype):
     tol = 1e-6 if dtype == torch.float32 else 2.0**-7
     assert float((dq_f.float() - dq.float()).abs().max()) <= tol * max(
         float(dq.float().abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_plain_partials_are_each_blocks_rounded_product(dtype):
+    """Each partial is one 128-key block's dS K * scale rounded to the input
+    type, bit for bit, in block order."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v, g = (torch.randn((2, 3, 300, 16), generator=gen).to(dtype) for _ in range(4))
+    o, lse = FA.flash_fwd_plain(q, k, v, 0.25)
+    delta = FA.flash_delta_plain(o, g)
+    part, _, _ = FA.flash_bwd_fused_plain(q, k, v, g, lse, delta, 0.25)
+    blocks = [(torch.matmul(ds, kb) * 0.25).to(dtype)
+              for ds, kb, _, _ in FA._bwd_blocks(q, k, v, g, lse, delta, 0.25, FA.PLAIN_BLOCK)]
+    assert part.shape[0] == 3 and torch.equal(part, torch.stack(blocks))
 
 
 def test_fused_partials_are_the_key_blocks_products():
