@@ -1,0 +1,7 @@
+"""Idle share of the device at the window's pace, its busy time from the
+traced refine calls."""
+from portbench.metrics.common import idle_share
+
+
+def read(run):
+    return idle_share(run)
