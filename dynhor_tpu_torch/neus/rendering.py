@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling as PF
 from . import draws
 from .draws import Key
 from .fields import NeuSField, clip, inv_std, sdf_forward, sdf_grad, sdf_only
@@ -173,21 +174,22 @@ def occupancy_from_sdf(field: NeuSField, rcfg: RenderConfig, tau_scale: float = 
     |sdf(center)| < tau (tau = tau_scale x the cell diagonal), dilated by
     one cell (a 3^3 max through three axis rolls).  Returns the (R^3,) f32
     flat grid over [-bound, bound]^3."""
-    r, b = rcfg.occ_res, rcfg.bound
-    dev = field.variance.device
-    centers = (torch.arange(r, device=dev) + 0.5) / r * (2 * b) - b
-    gx, gy, gz = torch.meshgrid(centers, centers, centers, indexing="ij")
-    pts = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
-    with torch.no_grad():
-        sdf = sdf_only(field, pts)
-    cell = 2.0 * b / r
-    tau = torch.tensor(tau_scale * cell, dtype=torch.float32) * torch.sqrt(torch.tensor(3.0))
-    occ3 = (torch.abs(sdf) < tau.to(dev)).float().reshape(r, r, r)
-    for ax in range(3):
-        occ3 = torch.maximum(
-            occ3, torch.maximum(torch.roll(occ3, 1, dims=ax), torch.roll(occ3, -1, dims=ax))
-        )
-    return occ3.reshape(-1)
+    with PF.span("neus.occupancy"):
+        r, b = rcfg.occ_res, rcfg.bound
+        dev = field.variance.device
+        centers = (torch.arange(r, device=dev) + 0.5) / r * (2 * b) - b
+        gx, gy, gz = torch.meshgrid(centers, centers, centers, indexing="ij")
+        pts = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+        with torch.no_grad():
+            sdf = sdf_only(field, pts)
+        cell = 2.0 * b / r
+        tau = torch.tensor(tau_scale * cell, dtype=torch.float32) * torch.sqrt(torch.tensor(3.0))
+        occ3 = (torch.abs(sdf) < tau.to(dev)).float().reshape(r, r, r)
+        for ax in range(3):
+            occ3 = torch.maximum(
+                occ3, torch.maximum(torch.roll(occ3, 1, dims=ax), torch.roll(occ3, -1, dims=ax))
+            )
+        return occ3.reshape(-1)
 
 
 def _occ_lookup(occ_flat: Tensor, pts: Tensor, rcfg: RenderConfig) -> Tensor:
@@ -229,35 +231,37 @@ def render_rays(field: NeuSField, rcfg: RenderConfig, rays: Rays, key: Key | Non
     k_strat, k_imp = (None, None) if key is None else key.split()
     dev = rays.origins.device
 
-    if rcfg.sampler == "occgrid":
-        if occ is None:
-            raise ValueError("occgrid sampler needs an occupancy grid")
-        # Uniform candidates -> occupancy-weighted inverse-CDF resampling.
-        u = linspace01(rcfg.n_candidates, dev)
-        tc = rays.near[:, None] + (rays.far - rays.near)[:, None] * u[None, :]
-        mid_c = 0.5 * (tc[..., 1:] + tc[..., :-1])
-        # A floor keeps samples on empty rays (mask/background terms).
-        w_occ = _occ_lookup(occ, _points(rays, mid_c), rcfg) + 1e-3
-        t = sample_pdf(tc, w_occ, rcfg.n_occ_samples, k_strat)
-        t = torch.sort(t, dim=-1)[0].detach()
-    else:
-        u = linspace01(rcfg.n_coarse, dev)
-        t = rays.near[:, None] + (rays.far - rays.near)[:, None] * u[None, :]
-        if rcfg.perturb and k_strat is not None:
-            mids = 0.5 * (t[..., 1:] + t[..., :-1])
-            upper = torch.cat([mids, t[..., -1:]], dim=-1)
-            lower = torch.cat([t[..., :1], mids], dim=-1)
-            t = lower + (upper - lower) * draws.draw_rows(k_strat, "uniform", tuple(t.shape))
-        if rcfg.up_sample_steps > 0 and rcfg.n_importance > 0:
-            sdf_c = sdf_only(field, _points(rays, t)).detach()
-            n_per = rcfg.n_importance // max(rcfg.up_sample_steps, 1)
-            for i in range(rcfg.up_sample_steps):
-                kk = None if k_imp is None else k_imp.fold_in(i)
-                t, sdf_c = up_sample(field, rays, t, sdf_c, n_per, rcfg.s_base * (2**i), kk)
-            t = t.detach()
+    with PF.span("neus.sample"):
+        if rcfg.sampler == "occgrid":
+            if occ is None:
+                raise ValueError("occgrid sampler needs an occupancy grid")
+            # Uniform candidates -> occupancy-weighted inverse-CDF resampling.
+            u = linspace01(rcfg.n_candidates, dev)
+            tc = rays.near[:, None] + (rays.far - rays.near)[:, None] * u[None, :]
+            mid_c = 0.5 * (tc[..., 1:] + tc[..., :-1])
+            # A floor keeps samples on empty rays (mask/background terms).
+            w_occ = _occ_lookup(occ, _points(rays, mid_c), rcfg) + 1e-3
+            t = sample_pdf(tc, w_occ, rcfg.n_occ_samples, k_strat)
+            t = torch.sort(t, dim=-1)[0].detach()
+        else:
+            u = linspace01(rcfg.n_coarse, dev)
+            t = rays.near[:, None] + (rays.far - rays.near)[:, None] * u[None, :]
+            if rcfg.perturb and k_strat is not None:
+                mids = 0.5 * (t[..., 1:] + t[..., :-1])
+                upper = torch.cat([mids, t[..., -1:]], dim=-1)
+                lower = torch.cat([t[..., :1], mids], dim=-1)
+                t = lower + (upper - lower) * draws.draw_rows(k_strat, "uniform", tuple(t.shape))
+            if rcfg.up_sample_steps > 0 and rcfg.n_importance > 0:
+                sdf_c = sdf_only(field, _points(rays, t)).detach()
+                n_per = rcfg.n_importance // max(rcfg.up_sample_steps, 1)
+                for i in range(rcfg.up_sample_steps):
+                    kk = None if k_imp is None else k_imp.fold_in(i)
+                    t, sdf_c = up_sample(field, rays, t, sdf_c, n_per, rcfg.s_base * (2**i), kk)
+                t = t.detach()
 
     # Section compositing at the final t set.
-    sdf, feat = sdf_forward(field, _points(rays, t))
+    with PF.span("neus.field"):
+        sdf, feat = sdf_forward(field, _points(rays, t))
     s = inv_std(field.variance)
     weights = _composite(_neus_alpha(sdf, s))  # (N, M-1)
     mid_t = 0.5 * (t[..., 1:] + t[..., :-1])
@@ -277,10 +281,12 @@ def render_rays(field: NeuSField, rcfg: RenderConfig, rays: Rays, key: Key | Non
                                 sel[..., None].expand(sel.shape + mid_feat.shape[-1:]))
 
     mid_pts = _points(rays, mid_t)
-    grads = sdf_grad(field, mid_pts)  # (N, K, 3)
+    with PF.span("neus.field"):
+        grads = sdf_grad(field, mid_pts)  # (N, K, 3)
     normals = safe_normalize(grads, eps=0.05)
     dirs = rays.dirs[:, None, :].expand(mid_pts.shape)
-    rgb_samples = field.color(mid_pts, dirs, normals, mid_feat)
+    with PF.span("neus.field"):
+        rgb_samples = field.color(mid_pts, dirs, normals, mid_feat)
     rgb = torch.sum(w_shade[..., None] * rgb_samples, dim=-2)
     normal = torch.sum(w_shade[..., None] * normals, dim=-2)
     surf = rays.origins + depth[..., None] * rays.dirs

@@ -23,6 +23,7 @@ import os
 import torch
 
 from ..parallel import mesh as PM
+from ..utils import profiling as PF
 from ..utils.device import resolve_device
 from . import draws
 from .data import CorrData, ReconData
@@ -176,6 +177,7 @@ def loss_fn(field: NeuSField, bg: Tensor, key: Key, data: ReconData, corr: CorrD
         k_render = k_render.for_rows(lo, hi, n)
         fr, xy, rgb_gt, mask_gt = fr[lo:hi], xy[lo:hi], rgb_gt[lo:hi], mask_gt[lo:hi]
         nrm_gt = None if nrm_gt is None else nrm_gt[lo:hi]
+    PF.count("neus.rays", fr.shape[0])
     out = render_rays(field, rcfg, _rays_for(data, fr, xy, rcfg.bound), k_render, occ)
 
     def ray_mean(x):  # this rank's term of the mean over the whole batch
@@ -288,15 +290,18 @@ def make_train_step(rcfg: RenderConfig, tcfg: TrainConfig, ray_sharding=None):
 
     def train_step(state: TrainState, key: Key, data: ReconData, corr: CorrData | None = None,
                    occ: Tensor | None = None) -> dict[str, Tensor]:
-        field = state.field
-        state.opt.zero_grad(set_to_none=True)
-        state.bg.grad = None
-        loss, logs = loss_fn(field, state.bg, key, data, corr, occ, rcfg, tcfg, ray_sharding)
-        loss.backward()
-        if ray_sharding is not None:
-            _sum_grads([*field.parameters(), state.bg], ray_sharding)
-        apply_update(state, tcfg)
-        return {k: v.detach() for k, v in logs.items()}
+        with PF.span("neus.step"):
+            field = state.field
+            state.opt.zero_grad(set_to_none=True)
+            state.bg.grad = None
+            loss, logs = loss_fn(field, state.bg, key, data, corr, occ, rcfg, tcfg, ray_sharding)
+            with PF.span("neus.backward"):
+                loss.backward()
+            if ray_sharding is not None:
+                _sum_grads([*field.parameters(), state.bg], ray_sharding)
+            with PF.span("neus.update"):
+                apply_update(state, tcfg)
+            return {k: v.detach() for k, v in logs.items()}
 
     return train_step
 

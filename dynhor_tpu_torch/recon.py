@@ -113,8 +113,6 @@ def main(argv: list[str] | None = None) -> ReconResult:
             data, sdf_cfg, rcfg, tcfg, corr=corr, board=board, checkpoint_dir=ckpt_dir,
             resume=not args.no_resume, device=dev, profiler=prof,
         )
-    # "train" keeps the steps' own seconds; the refreshes stand apart.
-    prof.times["train"] -= prof.times.get("occupancy", 0.0)
 
     resolution = int(rc.get("mesh_resolution", 192))
     with prof.phase("grid-sdf"):

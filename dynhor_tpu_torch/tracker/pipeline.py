@@ -246,6 +246,9 @@ def track_sequence(
     Args:
       dino_params: the ViT's parameters (``models/dino.py`` layout); None
         loads ``system.dino.checkpoint`` or, with none, draws random ones.
+      profiler: the ``utils.profiling.Profiler`` that times the phases;
+        None makes one (``system.profile``) and prints its summary at the
+        end.
       view_rotations: (N, 3, 3) world-to-camera prior rotations; None makes
         them from the config (a grid, or a random draw seeded by
         ``prior.seed`` that differs from the JAX package's draw).
@@ -481,7 +484,8 @@ def track_sequence(
             target_masks, joint_cfg, device=dev,
         )
     history = {k: v.numpy() for k, v in jres.history.items()}
-    prof.summary()
+    if profiler is None:  # a caller's profiler is the caller's to print
+        prof.summary()
     if board is not None:
         board.add_history(history)
 
@@ -548,25 +552,23 @@ def run_from_config(
 
     ``device``: None = the CUDA card (raises without one, before any work);
     "cpu" runs the kernels' plain versions."""
-    import time as _time
-
     dev = resolve_device(device)
-    t0 = _time.time()
+    prof = Profiler(enabled=bool(config["system"].get("profile", True)), device=dev)
     data_info = config["data_info"]
-    # Fail loudly on miswired exports (channel order, soft masks, size
-    # mismatches: io/ingest.py) BEFORE any device work.
-    if bool(config.get("system", {}).get("validate_data", True)):
-        from ..io.ingest import validate_or_raise
+    with prof.phase("host preprocessing"):
+        # Fail loudly on miswired exports (channel order, soft masks, size
+        # mismatches: io/ingest.py) BEFORE any device work.
+        if bool(config.get("system", {}).get("validate_data", True)):
+            from ..io.ingest import validate_or_raise
 
-        validate_or_raise(data_info["dataroot"])
-    seq = load_sequence(data_info["dataroot"])
-    ann = process_frames(
-        seq,
-        crop_size=int(config["system"]["crop_size"]),
-        bbox_expansion=float(config["system"]["bbox_expansion"]),
-    )
-    mesh = load_mesh(data_info["obj_path"], bool(data_info.get("normalize_mesh", True)))
-    print(f"[profile] host preprocessing: {_time.time() - t0:.2f}s", flush=True)
+            validate_or_raise(data_info["dataroot"])
+        seq = load_sequence(data_info["dataroot"])
+        ann = process_frames(
+            seq,
+            crop_size=int(config["system"]["crop_size"]),
+            bbox_expansion=float(config["system"]["bbox_expansion"]),
+        )
+        mesh = load_mesh(data_info["obj_path"], bool(data_info.get("normalize_mesh", True)))
 
     # Under several ranks every rank computes the same poses; rank 0 alone
     # writes the experiment directory.
@@ -579,10 +581,10 @@ def run_from_config(
             copy_config(exp_dir, config["_config_path"])
         board = Board(exp_dir)
 
-    result = track_sequence(config, seq, ann, mesh, board=board, device=dev)
-    t0 = _time.time()
-    result = maybe_vote_outliers(config, seq, ann, mesh, result, board, device=dev)
-    print(f"[profile] outlier-voting: {_time.time() - t0:.2f}s", flush=True)
+    result = track_sequence(config, seq, ann, mesh, board=board, profiler=prof, device=dev)
+    with prof.phase("outlier-voting"):
+        result = maybe_vote_outliers(config, seq, ann, mesh, result, board, device=dev)
+    prof.summary()
     if writer:
         save_pose_npzs(
             exp_dir, seq.frame_ids, result.rotations_row, result.translations, result.K

@@ -40,6 +40,7 @@ from ..ops.shading import default_lights, phong_shade
 from ..parallel import mesh as PM
 from ..utils import bbox as bboxu
 from ..utils import geometry as G
+from ..utils import profiling as PF
 from ..utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -262,23 +263,27 @@ def prior_scores_and_rotations(
     scores, sils, overflow = [], [], []
     for s in range(0, view_rotations.shape[0], cfg.view_chunk):
         R = view_rotations[s : s + cfg.view_chunk]
-        rgba, _, ov = _render_views(
-            verts, faces, face_uvs, texture, R, _view_translations(R, distance, center),
-            K_win, window, cfg.max_faces_per_tile,
-        )
-        crops, crop_masks, _ = _crop_view(rgba, cfg.crop_size, cfg.bbox_expansion)
-        feats = _dino_feats_of_crops(dino_params, dino_cfg, crops, cfg.dino_dtype)
-        sim = torch.einsum("fpd,cpd->fcp", gt_feats, feats)  # cosine per token
-        masked = torch.einsum("fcp,fp->fc", sim, cos_masks)
-        scores.append(masked / cos_sum[:, None])
-        overflow.append(ov.max())
-        if with_sil:
-            # Sums of {0,1} in f32 are exact, so the IoU is one division.
-            m_sil = resize_nearest(crop_masks.float(), SIL_RES, SIL_RES)
-            m_sil = m_sil.reshape(m_sil.shape[0], -1)  # (C, SIL_RES²)
-            inter = torch.einsum("fp,cp->fc", sil_masks, m_sil)
-            union = sil_masks.sum(1)[:, None] + m_sil.sum(1)[None, :] - inter
-            sils.append(inter / union.clamp_min(1.0))
+        with PF.span("prior.render"):
+            rgba, _, ov = _render_views(
+                verts, faces, face_uvs, texture, R, _view_translations(R, distance, center),
+                K_win, window, cfg.max_faces_per_tile,
+            )
+        with PF.span("prior.crop"):
+            crops, crop_masks, _ = _crop_view(rgba, cfg.crop_size, cfg.bbox_expansion)
+        with PF.span("prior.vit"):
+            feats = _dino_feats_of_crops(dino_params, dino_cfg, crops, cfg.dino_dtype)
+        with PF.span("prior.score"):
+            sim = torch.einsum("fpd,cpd->fcp", gt_feats, feats)  # cosine per token
+            masked = torch.einsum("fcp,fp->fc", sim, cos_masks)
+            scores.append(masked / cos_sum[:, None])
+            overflow.append(ov.max())
+            if with_sil:
+                # Sums of {0,1} in f32 are exact, so the IoU is one division.
+                m_sil = resize_nearest(crop_masks.float(), SIL_RES, SIL_RES)
+                m_sil = m_sil.reshape(m_sil.shape[0], -1)  # (C, SIL_RES²)
+                inter = torch.einsum("fp,cp->fc", sil_masks, m_sil)
+                union = sil_masks.sum(1)[:, None] + m_sil.sum(1)[None, :] - inter
+                sils.append(inter / union.clamp_min(1.0))
     ov_max = torch.stack(overflow).max()
     if with_sil:
         return torch.cat(scores, dim=1), torch.cat(sils, dim=1), ov_max
@@ -301,16 +306,17 @@ def required_prior_cap(
     128): the most margin-0 candidate faces in any tile of any view, times
     ``headroom``.  Edge-on views can pack far more faces into a tile than
     any fixed default.  Reads the device once."""
-    K_win = _window_camera(cfg, window, verts.device)
-    dist = torch.tensor(distance, dtype=torch.float32, device=verts.device)
-    worst = torch.zeros((), dtype=torch.int32, device=verts.device)
-    for i in range(0, view_rotations.shape[0], chunk):
-        R = view_rotations[i : i + chunk]
-        t = _view_translations(R, dist, center)
-        vp = rz.project_perspective(verts @ R.transpose(1, 2) + t[:, None], K_win)
-        loads = max_tile_load(vp, faces, (window, window), 16, margin=0.0)
-        worst = torch.maximum(worst, loads.max())
-    cap = int(-(-float(worst) * headroom // 128) * 128)
+    with PF.span("prior.cap"):
+        K_win = _window_camera(cfg, window, verts.device)
+        dist = torch.tensor(distance, dtype=torch.float32, device=verts.device)
+        worst = torch.zeros((), dtype=torch.int32, device=verts.device)
+        for i in range(0, view_rotations.shape[0], chunk):
+            R = view_rotations[i : i + chunk]
+            t = _view_translations(R, dist, center)
+            vp = rz.project_perspective(verts @ R.transpose(1, 2) + t[:, None], K_win)
+            loads = max_tile_load(vp, faces, (window, window), 16, margin=0.0)
+            worst = torch.maximum(worst, loads.max())
+        cap = int(-(-float(worst) * headroom // 128) * 128)
     return max(128, min(cap, int(faces.shape[0])))
 
 
@@ -434,6 +440,7 @@ def prior_scores_batched(
         if max_ov == 0 or cfg_l.max_faces_per_tile >= f_total:
             break
         new_cap = min(cfg_l.max_faces_per_tile * 2, f_total)
+        PF.count("prior.cap_reruns")
         print(
             f"prior rendering: tile-bin overflow (max {max_ov} dropped) —"
             f" rerunning all views at max_faces_per_tile={new_cap}",
@@ -516,60 +523,65 @@ def prior_scores_two_stage(
         )
 
     # ---- stage A: low-resolution prescreen of all N views ----
-    cfg_lo = dataclasses.replace(
-        cfg,
-        render_h=cfg.render_h // prescreen_scale,
-        render_w=cfg.render_w // prescreen_scale,
-        crop_size=cfg.crop_size // prescreen_scale,
-        view_chunk=cfg.view_chunk * prescreen_scale,
-    )
-    dino_cfg_lo = dataclasses.replace(dino_cfg, smaller_edge_size=prescreen_edge)
-    verts_t = torch.as_tensor(verts, dtype=torch.float32, device=dev)
-    radius, _ = mesh_radius_center(verts_t)
-    window_lo = compute_window(
-        cfg_lo, float(mesh_norm_radius(verts_t)), float(cfg_lo.distance_scale * radius)
-    )
-    gt_feats_lo, cos_masks_lo = frame_gt_features(
-        dino_params, dino_cfg_lo, crop_images, target_masks, cfg.dino_dtype, dev
-    )
-    out_lo = prior_scores_batched(
-        dino_params, dino_cfg_lo, verts, faces, face_uvs, texture, view_rotations,
-        gt_feats_lo, cos_masks_lo, cfg_lo, window_lo, host_batch, dev,
-        with_sil=with_sil, sil_masks=sil_masks, view_mesh=view_mesh,
-    )
-    scores_lo, sil_scores = out_lo if with_sil else (out_lo, None)
-    scores_lo_np = scores_lo.cpu().numpy()
+    PF.count("prior.views_prescreened", n)
+    with PF.span("prior.prescreen"):
+        cfg_lo = dataclasses.replace(
+            cfg,
+            render_h=cfg.render_h // prescreen_scale,
+            render_w=cfg.render_w // prescreen_scale,
+            crop_size=cfg.crop_size // prescreen_scale,
+            view_chunk=cfg.view_chunk * prescreen_scale,
+        )
+        dino_cfg_lo = dataclasses.replace(dino_cfg, smaller_edge_size=prescreen_edge)
+        verts_t = torch.as_tensor(verts, dtype=torch.float32, device=dev)
+        radius, _ = mesh_radius_center(verts_t)
+        window_lo = compute_window(
+            cfg_lo, float(mesh_norm_radius(verts_t)), float(cfg_lo.distance_scale * radius)
+        )
+        gt_feats_lo, cos_masks_lo = frame_gt_features(
+            dino_params, dino_cfg_lo, crop_images, target_masks, cfg.dino_dtype, dev
+        )
+        out_lo = prior_scores_batched(
+            dino_params, dino_cfg_lo, verts, faces, face_uvs, texture, view_rotations,
+            gt_feats_lo, cos_masks_lo, cfg_lo, window_lo, host_batch, dev,
+            with_sil=with_sil, sil_masks=sil_masks, view_mesh=view_mesh,
+        )
+        scores_lo, sil_scores = out_lo if with_sil else (out_lo, None)
+        scores_lo_np = scores_lo.cpu().numpy()
 
     # ---- stage B: full-resolution rescore of the per-frame top-K union ----
-    k = min(topk, n)
-    top_idx = np.argpartition(-scores_lo_np, k - 1, axis=1)[:, :k]
-    idx = np.unique(top_idx.reshape(-1))
-    rots = torch.as_tensor(view_rotations)[torch.as_tensor(idx)]
-    sub = prior_scores_batched(
-        *common, rots, gt_feats, cos_masks, cfg, window, host_batch, dev, view_mesh=view_mesh
-    )
-    sub_np = sub.cpu().numpy()  # (F, |idx|)
+    with PF.span("prior.rescore"):
+        k = min(topk, n)
+        top_idx = np.argpartition(-scores_lo_np, k - 1, axis=1)[:, :k]
+        idx = np.unique(top_idx.reshape(-1))
+        PF.count("prior.views_rescored", idx.size)
+        rots = torch.as_tensor(view_rotations)[torch.as_tensor(idx)]
+        sub = prior_scores_batched(
+            *common, rots, gt_feats, cos_masks, cfg, window, host_batch, dev, view_mesh=view_mesh
+        )
+        sub_np = sub.cpu().numpy()  # (F, |idx|)
 
     # ---- per-frame affine calibration of the non-rescored tail ----
-    lo_sub = scores_lo_np[:, idx]
-    lo_mu = lo_sub.mean(axis=1, keepdims=True)
-    hi_mu = sub_np.mean(axis=1, keepdims=True)
-    lo_c = lo_sub - lo_mu
-    denom = (lo_c * lo_c).sum(axis=1, keepdims=True)
-    a = np.where(
-        denom > 1e-12, ((sub_np - hi_mu) * lo_c).sum(axis=1, keepdims=True)
-        / np.maximum(denom, 1e-12), 1.0,
-    )
-    b = hi_mu - a * lo_mu
-    scores = a * scores_lo_np + b
-    # The fill sits strictly below each frame's rescored minimum: the gate's
-    # top-k come from full-resolution scores by construction, while its
-    # max/std statistics stay on the full-resolution scale.
-    scores = np.minimum(scores, sub_np.min(axis=1, keepdims=True) - 1e-4)
-    scores[np.arange(f_frames)[:, None], idx[None, :]] = sub_np
-    if with_sil:
-        return torch.as_tensor(scores, device=dev), sil_scores
-    return torch.as_tensor(scores, device=dev)
+    with PF.span("prior.calibrate"):
+        lo_sub = scores_lo_np[:, idx]
+        lo_mu = lo_sub.mean(axis=1, keepdims=True)
+        hi_mu = sub_np.mean(axis=1, keepdims=True)
+        lo_c = lo_sub - lo_mu
+        denom = (lo_c * lo_c).sum(axis=1, keepdims=True)
+        a = np.where(
+            denom > 1e-12, ((sub_np - hi_mu) * lo_c).sum(axis=1, keepdims=True)
+            / np.maximum(denom, 1e-12), 1.0,
+        )
+        b = hi_mu - a * lo_mu
+        scores = a * scores_lo_np + b
+        # The fill sits strictly below each frame's rescored minimum: the gate's
+        # top-k come from full-resolution scores by construction, while its
+        # max/std statistics stay on the full-resolution scale.
+        scores = np.minimum(scores, sub_np.min(axis=1, keepdims=True) - 1e-4)
+        scores[np.arange(f_frames)[:, None], idx[None, :]] = sub_np
+        if with_sil:
+            return torch.as_tensor(scores, device=dev), sil_scores
+        return torch.as_tensor(scores, device=dev)
 
 
 def render_mesh_opencv_pose(
@@ -630,14 +642,15 @@ def frame_gt_features(
 
     Returns (gt_feats (F, P, D), cos_masks (F, P)) on ``device``.
     """
-    dev = resolve_device(device)
-    params = _place_params(dino_params, dino_dtype, dev)
-    crops = torch.as_tensor(crop_images, dtype=torch.float32, device=dev)
-    masks = torch.as_tensor(target_masks, dtype=torch.float32, device=dev)
-    with torch.inference_mode():
-        feats = _dino_feats_of_crops(params, dino_cfg, crops, dino_dtype)
-    fs = dino_cfg.feat_size
-    cos = resize_nearest((masks > 0).float(), fs, fs)
-    # A copy made outside inference mode: the refine's loss saves the frame
-    # features for its backward.
-    return feats.clone(), cos.reshape(cos.shape[0], -1)
+    with PF.span("prior.frame_features"):
+        dev = resolve_device(device)
+        params = _place_params(dino_params, dino_dtype, dev)
+        crops = torch.as_tensor(crop_images, dtype=torch.float32, device=dev)
+        masks = torch.as_tensor(target_masks, dtype=torch.float32, device=dev)
+        with torch.inference_mode():
+            feats = _dino_feats_of_crops(params, dino_cfg, crops, dino_dtype)
+        fs = dino_cfg.feat_size
+        cos = resize_nearest((masks > 0).float(), fs, fs)
+        # A copy made outside inference mode: the refine's loss saves the frame
+        # features for its backward.
+        return feats.clone(), cos.reshape(cos.shape[0], -1)

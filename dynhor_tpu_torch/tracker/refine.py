@@ -41,6 +41,7 @@ from ..ops.silhouette import soft_silhouette
 from ..parallel import mesh as PM
 from ..utils import camera as cam
 from ..utils import geometry as G
+from ..utils import profiling as PF
 from ..utils.device import resolve_device
 from ..utils.masks import batch_mask_iou
 
@@ -195,41 +196,47 @@ def _frame_loss(
     """Per-frame losses of all B frames given (B, 3, 2) rot6d and (B, 1, 3)
     trans.  Returns (loss (B,), iou (B,) detached, overflow (B,))."""
     s = cfg.crop_size
-    R = G.rot6d_to_matrix(rot6d)
-    verts_t = mesh.verts @ R + trans  # (B, V, 3) row convention, camera space
+    with PF.span("refine.render"):
+        R = G.rot6d_to_matrix(rot6d)
+        verts_t = mesh.verts @ R + trans  # (B, V, 3) row convention, camera space
 
-    ref_mask = (targets.target_masks > 0).float()
-    keep_mask = (targets.target_masks >= 0).float()
+        ref_mask = (targets.target_masks > 0).float()
+        keep_mask = (targets.target_masks >= 0).float()
 
-    vp = rz.project_perspective(verts_t, targets.K_rois)
-    # The soft silhouette is the objective (a consistent value/gradient
-    # pair); the reported IoU uses the hard mask (reference loss parity).
-    frag, soft, overflow, compact = _silhouettes(vp, mesh.faces, cfg)
-    hard = (frag.pix_to_face >= 0).float()
-    loss = 1.0 - batch_mask_iou(keep_mask * soft, ref_mask)
-    iou = batch_mask_iou(keep_mask * hard, ref_mask)
+        vp = rz.project_perspective(verts_t, targets.K_rois)
+        # The soft silhouette is the objective (a consistent value/gradient
+        # pair); the reported IoU uses the hard mask (reference loss parity).
+        frag, soft, overflow, compact = _silhouettes(vp, mesh.faces, cfg)
+        hard = (frag.pix_to_face >= 0).float()
+        loss = 1.0 - batch_mask_iou(keep_mask * soft, ref_mask)
+        iou = batch_mask_iou(keep_mask * hard, ref_mask)
 
-    K01 = torch.cat([targets.K_rois[:, :2] / s, targets.K_rois[:, 2:]], dim=1)
-    loss = loss + cfg.offscreen_weight * offscreen_penalty(verts_t, K01, cfg.far)
+        K01 = torch.cat([targets.K_rois[:, :2] / s, targets.K_rois[:, 2:]], dim=1)
+        loss = loss + cfg.offscreen_weight * offscreen_penalty(verts_t, K01, cfg.far)
+
+        if cfg.mode == "fine":
+            vn = rz.compute_vertex_normals(verts_t, mesh.faces)
+            lights = fine_lights(device=verts_t.device)
+            if compact is not None:
+                rgba = phong_shade_tiles(
+                    compact, (s, s), cfg.tile_size, mesh.faces, verts_t, vn,
+                    mesh.face_uvs, mesh.texture, lights,
+                )
+            else:
+                rgba = phong_shade(
+                    frag, mesh.faces, verts_t, vn, mesh.face_uvs, mesh.texture, lights
+                )
+            rgb = rgba[..., :3].permute(0, 3, 1, 2)  # (B, 3, S, S)
 
     if cfg.mode == "fine":
-        vn = rz.compute_vertex_normals(verts_t, mesh.faces)
-        lights = fine_lights(device=verts_t.device)
-        if compact is not None:
-            rgba = phong_shade_tiles(
-                compact, (s, s), cfg.tile_size, mesh.faces, verts_t, vn,
-                mesh.face_uvs, mesh.texture, lights,
-            )
-        else:
-            rgba = phong_shade(
-                frag, mesh.faces, verts_t, vn, mesh.face_uvs, mesh.texture, lights
-            )
-        rgb = rgba[..., :3].permute(0, 3, 1, 2)  # (B, 3, S, S)
         # Fused resize(518) + ImageNet-normalize + patch-embed: the
         # upsampled image never exists.
-        feats = dino_mod.forward_tokens_from_crop(
-            dino_params, rgb, dino_cfg, remat=cfg.dino_remat
-        ).float()
+        with PF.span("refine.vit_fwd"):
+            tokens = dino_mod.forward_tokens_from_crop(
+                dino_params, rgb, dino_cfg, remat=cfg.dino_remat
+            )
+        PF.span_between_grads("refine.vit_bwd", tokens, rgb)
+        feats = tokens.float()
         fs = dino_cfg.feat_size
         ref_small = resize_nearest(ref_mask, fs, fs).reshape(ref_mask.shape[0], -1)
         gt = targets.gt_feats
@@ -277,14 +284,20 @@ def _refine_launch(
     ious = torch.zeros((b,), device=dev)
     max_ov = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(cfg.num_iterations):
-        losses, ious, ov = _frame_loss(
-            rot6d, trans, mesh, targets, dino_params, dino_cfg, cfg
-        )
-        opt.zero_grad(set_to_none=True)
-        losses.sum().backward()
-        opt.step()
-        losses = losses.detach()
-        max_ov = torch.maximum(max_ov, ov.max())
+        with PF.span("refine.step"):
+            losses, ious, ov = _frame_loss(
+                rot6d, trans, mesh, targets, dino_params, dino_cfg, cfg
+            )
+            with PF.span("refine.backward"):
+                losses.sum().backward()
+            # Adam reads the gradients and drops them (none were there
+            # before the first step): the next backward starts from none.
+            with PF.span("refine.adam"):
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+            losses = losses.detach()
+            max_ov = torch.maximum(max_ov, ov.max())
+    PF.count("refine.frame_steps", b * cfg.num_iterations)
     result = RefineResult(rot6d.detach(), trans.detach(), losses, ious)
 
     def moments(p):
