@@ -110,7 +110,9 @@ Phases; any failure exits non-zero.
    (the voting's own too), the artifacts (12 pose files with orthonormal
    R, board/, config.yaml, the closing line), no overflow, K3 once per view
    chunk of both stages, K1 and K2 once per refine, joint and re-joint step,
-   K5 never.  K1-K3's ``launches`` in the ``kernels`` line are this run's.
+   K5's backward kernels once a layer and refine step and its forward in
+   every ViT call (the default attention).  K1-K3's ``launches`` in the
+   ``kernels`` line are this run's.
    Then the run's poses with frame 5 moved far off through
    ``maybe_vote_outliers``: the frame found, K1 and K2 once per re-joint
    step (100), the repaired poses orthonormal, the re-joint's overflow at
@@ -387,6 +389,21 @@ def k5_per_step(dcfg, cfg) -> tuple[int, int]:
     if dcfg.attn_impl == "xla":
         return 0, 0
     return dcfg.depth * (2 if cfg.dino_remat else 1), dcfg.depth
+
+
+def check_default_vit_k5(launches: dict, refine_steps: int | None, where: str,
+                         depth: int = 12) -> None:
+    """The port's default ViT ("flash", bf16, "frozen") on a tracking path:
+    K5's delta, dK/dV and dQ kernels once a layer and refine step (of
+    ``refine_steps``, where given), its forward more than twice that (the
+    recomputed backward, and every forward-only ViT call besides)."""
+    bwd = {k: launches[k] for k in K5_KEYS[1:]}
+    n = launches[K5_KEYS[1]]
+    want = n if refine_steps is None else depth * refine_steps
+    check(n > 0 and n % depth == 0 and bwd == dict.fromkeys(bwd, want)
+          and launches[K5_KEYS[0]] > 2 * n,
+          f"{where}: K5 launches {bwd}, forward {launches[K5_KEYS[0]]}, expected "
+          f"{want} each and the forward above twice that")
 
 
 def reset_launches() -> None:
@@ -2202,7 +2219,8 @@ def phase_run(dev, card: str, kernel_rows: list[dict], tmp: str) -> dict:
     steps += sysc["joint_num_iterations"] // 2 if outliers else 0
     check(launches["K1"] == launches["K2"] == steps,
           f"K1/K2 launched {launches['K1']}/{launches['K2']} times for {steps} steps")
-    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3") and n}
+    check_default_vit_k5(launches, sysc["init_num_iterations"], "run.py")
+    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3", *K5_KEYS) and n}
     check(not others, f"kernels off this path launched: {others}")
     gt = np.load(os.path.join(seq_dir, "gt_poses.npz"))
     from dynhor_tpu_torch.utils import geometry as G
@@ -2216,7 +2234,8 @@ def phase_run(dev, card: str, kernel_rows: list[dict], tmp: str) -> dict:
         f"[run] {route}: {t_run:.3f} s wall; phase seconds {secs}; scoring stages "
         f"{n_lo} views in {t_lo:.3f} s, {n_hi} in {t_hi:.3f} s; selected views "
         f"{result.selected_idx.tolist()}; outliers {outliers}; launches K1 {launches['K1']}, "
-        f"K2 {launches['K2']}, K3 {launches['K3']} (view chunks {chunks}), K5 0; peak "
+        f"K2 {launches['K2']}, K3 {launches['K3']} (view chunks {chunks}), K5 forward "
+        f"{launches['K5 fwd']}, backward {launches['K5 dq']}; peak "
         f"{peak / 2**30:.2f} GiB allocated, the voting's own "
         f"{max(voting.peaks) / 2**30:.3f} GiB; rotation error against gt_poses.npz "
         f"(random ViT weights) mean {float(ang.mean()):.1f} deg — {card}", flush=True,
@@ -2436,7 +2455,8 @@ def phase_multihyp(dev, card: str, tmp: str, run: dict) -> None:
     steps = multihyp_steps(sysc, outliers)
     check(launches["K1"] == launches["K2"] == steps,
           f"K1/K2 launched {launches['K1']}/{launches['K2']} times for {steps} steps")
-    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3") and n}
+    check_default_vit_k5(launches, None, "multi-hypothesis run.py")
+    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3", *K5_KEYS) and n}
     check(not others, f"kernels off this path launched: {others}")
     sil_np = sil.cpu().numpy()
     print(
@@ -2446,7 +2466,8 @@ def phase_multihyp(dev, card: str, tmp: str, run: dict) -> None:
         f"[{sil_np.min():.4f}, {sil_np.max():.4f}], mean {sil_np.mean():.4f}; provenance "
         f"{idx.tolist()}; winners {mres.winner.tolist()}; {line[0]}; outliers {outliers}; "
         f"launches K1 {launches['K1']}, K2 {launches['K2']} ({steps} steps), K3 "
-        f"{launches['K3']} (view chunks {chunks}, phase 6 {run['k3']}), K5 0 — {card}",
+        f"{launches['K3']} (view chunks {chunks}, phase 6 {run['k3']}), K5 forward "
+        f"{launches['K5 fwd']}, backward {launches['K5 dq']} — {card}",
         flush=True,
     )
 
@@ -2475,8 +2496,9 @@ def box_sequence(tmp: str):
     seq = PL.load_sequence(seq_dir)
     ann = PL.process_frames(seq, crop_size=64)
     mesh = PL.load_mesh(obj, normalize=False)
+    # Head dim 16, which K5 does not take: the attention written out.
     dcfg = D.DinoConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, pos_grid=4,
-                        smaller_edge_size=32)
+                        smaller_edge_size=32, attn_impl="xla")
     return cfg, seq, ann, mesh, dcfg, D.init_params(dcfg, torch.Generator().manual_seed(3))
 
 
@@ -2726,7 +2748,8 @@ def phase_multi(dev, card: str, tmp: str, run: dict) -> None:
     steps = groups * sysc["init_num_iterations"] + len(seqs) * sysc["joint_num_iterations"]
     check(launches["K1"] == launches["K2"] == steps,
           f"K1/K2 launched {launches['K1']}/{launches['K2']} times for {steps} steps")
-    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3") and n}
+    check_default_vit_k5(launches, groups * sysc["init_num_iterations"], "run_multi")
+    others = {k: n for k, n in launches.items() if k not in ("K1", "K2", "K3", *K5_KEYS) and n}
     check(not others, f"kernels off this path launched: {others}")
 
     # The caps of each sequence's frames in the pooled batch, and K1/K2 on
@@ -4085,8 +4108,8 @@ def main() -> None:
     stamp("phases 2d, 2e")
     from dynhor_tpu_torch.models.dino import DinoConfig
 
-    flash = DinoConfig(attn_impl="flash")
-    written = phase_main(dev, sc, smi, kernel_rows, DinoConfig())
+    flash, xla = DinoConfig(attn_impl="flash"), DinoConfig(attn_impl="xla")
+    written = phase_main(dev, sc, smi, kernel_rows, xla)
     fused = phase_main(dev, sc, smi, kernel_rows, flash, again=True)
     print(
         f"[main] attn_impl xla vs flash: {written['ms_step']:.2f} vs {fused['ms_step']:.2f} "
@@ -4101,7 +4124,7 @@ def main() -> None:
         f"ms/step, peak {f32['peak_gib']:.2f} vs {fused['peak_gib']:.2f} GiB — {smi}", flush=True,
     )
     phase_fused_refine(dev, sc, smi, kernel_rows, fused, f32)
-    remat = {impl: phase_remat(dev, sc, smi, cfg) for impl, cfg in (("xla", DinoConfig()),
+    remat = {impl: phase_remat(dev, sc, smi, cfg) for impl, cfg in (("xla", xla),
                                                                      ("flash", flash))}
     print("[remat] policy x attn_impl: " + "; ".join(
         f"{impl} {p!r} {r['ms']:.2f} ms/step {r['peak_gib']:.2f} GiB"
@@ -4115,7 +4138,7 @@ def main() -> None:
     phase_joint_small(dev)
     phase_profiler(dev, sc, smi, kernel_rows)
     stamp("phases 3b, 3c")
-    pw = phase_priors(dev, smi, kernel_rows, DinoConfig())
+    pw = phase_priors(dev, smi, kernel_rows, xla)
     pf = phase_priors(dev, smi, kernel_rows, flash)
     print(
         f"[priors] attn_impl xla vs flash, {PRIOR_VIEWS} views: scoring {pw['scoring']:.3f} vs "

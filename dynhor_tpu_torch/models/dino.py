@@ -9,13 +9,17 @@ The parameter layout is the JAX package's, so ``params_from_jax`` carries
 its parameters across unchanged: blocks stacked on a leading depth axis,
 kernels as (in, out) matrices applied as ``x @ W + b``, and
 ``patch_kernel`` (3*p*p, D) in (c, u, v) order.  ``DinoConfig.attn_impl``
-selects the attention as in the JAX package: "xla" (the default) writes it
-out (matmul, softmax, matmul); "flash" and "splash", two TPU kernels there,
-both select ``ops/flash_attention.flash_attention`` here, one hand-written
-CUDA flash attention (bf16 or f32 at head dim 64 on the card, its plain
-version on the CPU); ``splash_fused_bwd`` under "splash" selects its fused
-backward, as it selects splash's there.  There is no quiet switch back to
-"xla".  ``remat`` (the refine's
+selects the attention by the JAX package's names: "flash" (the default here)
+and "splash", two TPU kernels there, both select
+``ops/flash_attention.flash_attention`` here, one hand-written CUDA flash
+attention (bf16 or f32 at head dim 64 on the card, its plain version on the
+CPU) that never holds an N x N tensor; ``splash_fused_bwd`` under "splash"
+selects its fused backward, as it selects splash's there.  "xla", the JAX
+package's default, writes the attention out (matmul, softmax, matmul): XLA
+fuses that chain on the TPU, but in eager PyTorch it is some ten passes over
+B·H·N² entries a layer, forward and backward, so the port defaults to the
+kernel.  "xla" stays selectable by name; the device never picks the path.
+``remat`` (the refine's
 ``RefineConfig.dino_remat``) is the JAX package's recomputation policy for
 the backward, keeping what it keeps (``_trunk``): "frozen" keeps each
 block's input, ``qkv``, mid residual and fc1 output; "dots" every matmul
@@ -36,6 +40,7 @@ import torch.utils.checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.resize import _bicubic_matrix_ac, resize_bicubic_halfpix
+from ..utils import profiling as PF
 
 Tensor = torch.Tensor
 
@@ -55,9 +60,10 @@ class DinoConfig:
     pos_grid: int = 37  # native pos-embed grid (518 / 14)
     smaller_edge_size: int = 518  # reference dino.py:5
     layer_norm_eps: float = 1e-6
-    # "xla": attention written out (the name is the JAX package's); "flash"
-    # or "splash": ops/flash_attention.flash_attention.
-    attn_impl: str = "xla"
+    # "flash" or "splash": ops/flash_attention.flash_attention, the
+    # hand-written kernel (K5) on the card.  "xla", the JAX package's
+    # default: the attention written out (see the module docstring).
+    attn_impl: str = "flash"
     # The JAX package's flash_block and splash_block (TPU VMEM tile sizes) are
     # not taken: the Hopper kernels keep their own tiles
     # (csrc/flash_attention.cu: 128 query rows or keys a block, 64- or
@@ -195,14 +201,17 @@ def _attention_core(
 ) -> Tensor:
     """(B, N, 3D) qkv -> (B, N, D) attention output, before the projection.
     ``fused_bwd`` (the config's ``splash_fused_bwd``) counts under "splash"
-    only, as in the JAX package."""
+    only, as in the JAX package.  Counts each call (a recomputed one too)
+    as ``vit.attn_kernel`` or ``vit.attn_written_out``."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     if attn_impl == "xla":
+        PF.count("vit.attn_written_out")
         o = _attention(q, k, v, hd)
     else:  # q, k, v go in as the strided views they are
+        PF.count("vit.attn_kernel")
         o = flash_attention(q, k, v, 1.0 / math.sqrt(hd),
                             fused_bwd=attn_impl == "splash" and fused_bwd)
     return o.transpose(1, 2).reshape(b, n, d)
@@ -221,7 +230,7 @@ def _recomputed(fn, *args):
 
 
 def _block(
-    x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float, attn_impl: str = "xla",
+    x: Tensor, p: dict[str, Tensor], num_heads: int, eps: float, attn_impl: str = "flash",
     fused_bwd: bool = False, frozen: bool = False,
 ) -> Tensor:
     """One pre-norm block.  With ``frozen`` (the JAX package's "frozen"

@@ -43,7 +43,7 @@ from ..utils.device import resolve_device
 from ._timing import first_and_mean_ms
 
 VARIANTS = {
-    "xla": {},
+    "xla": {"attn_impl": "xla"},
     "flash": {"attn_impl": "flash"},
     "splash": {"attn_impl": "splash"},
     "splash fused-bwd": {"attn_impl": "splash", "splash_fused_bwd": True},

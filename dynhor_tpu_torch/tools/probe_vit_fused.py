@@ -46,7 +46,7 @@ def pieces(device, cfg: D.DinoConfig = D.DinoConfig(), frames: int = FRAMES, cro
     return {f"remat={r!r}": make(r) for r in policies}
 
 
-def run(device=None, attn_impls=("xla",), n: int = 10, out=print) -> dict:
+def run(device=None, attn_impls=(D.DinoConfig().attn_impl,), n: int = 10, out=print) -> dict:
     """{(attn_impl, policy label): {"ms", "first_ms", "peak_gib"}}."""
     dev = resolve_device(device)
     res = {}
@@ -65,7 +65,8 @@ def run(device=None, attn_impls=("xla",), n: int = 10, out=print) -> dict:
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--attn-impl", nargs="+", default=["xla"], choices=["xla", "flash", "splash"])
+    ap.add_argument("--attn-impl", nargs="+", default=[D.DinoConfig().attn_impl],
+                    choices=["xla", "flash", "splash"])
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     print(torch.cuda.get_device_name(dev), flush=True)

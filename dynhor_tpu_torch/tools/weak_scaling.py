@@ -42,7 +42,8 @@ from ..utils.objio import load_obj
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SHOES = os.path.join(REPO, "assets/shoes/1229a2e6e97e_A_basketball_shoes_.obj")
-TINY_VIT = dict(patch_size=14, embed_dim=64, depth=2, num_heads=4, pos_grid=4)
+# Head dim 16, which K5 does not take: the attention written out.
+TINY_VIT = dict(patch_size=14, embed_dim=64, depth=2, num_heads=4, pos_grid=4, attn_impl="xla")
 
 
 def setup(frames: int, edge: int, device, crop: int = 256, dino: str = "full"):

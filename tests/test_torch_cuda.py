@@ -270,8 +270,9 @@ def test_prior_scores_launch_k3_once_per_chunk(cuda):
 
     m = load_obj("assets/shoes/1229a2e6e97e_A_basketball_shoes_.obj")
     verts = TG.center_and_normalize_verts(torch.as_tensor(m.verts))
+    # Head dim 16, which K5 does not take: the attention written out.
     dcfg = TD.DinoConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, pos_grid=4,
-                         smaller_edge_size=32)
+                         smaller_edge_size=32, attn_impl="xla")
     params = TD.init_params(dcfg, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     gt = torch.nn.functional.normalize(torch.randn((2, 16, 32), generator=gen), dim=-1)
@@ -532,7 +533,7 @@ def test_vit_runs_through_flash_attention(cuda):
     )
     params["blocks"]["ls1"] = torch.ones_like(params["blocks"]["ls1"])
     rgb = torch.rand((3, 3, 48, 48), generator=torch.Generator().manual_seed(1)).to(cuda)
-    ref = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(**kw)).float()
+    ref = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(attn_impl="xla", **kw)).float()
     for impl in ("flash", "splash"):
         before = kernels.flash_fwd.launches
         with torch.inference_mode():
@@ -554,13 +555,56 @@ def test_f32_vit_runs_through_the_f32_kernels(cuda):
     )
     params["blocks"]["ls1"] = torch.ones_like(params["blocks"]["ls1"])
     rgb = torch.rand((3, 3, 48, 48), generator=torch.Generator().manual_seed(1)).to(cuda)
-    ref = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(**kw))
+    ref = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(attn_impl="xla", **kw))
     before = _k5_launches()
     with torch.inference_mode():
         tok = TD.forward_tokens_from_crop(params, rgb, TD.DinoConfig(attn_impl="flash", **kw))
     assert _k5_ran(before) == ([0] * 4, [2, 0, 0, 0])
     assert tok.dtype == torch.float32
     assert float((tok - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_default_refine_step_runs_through_k5(cuda):
+    """One fine refine step at the defaults (ViT-B/14 at 518 in bf16, "flash",
+    "frozen"): K5's forward once a layer and once more in the recomputed
+    backward, its delta, dK/dV and dQ kernels once a layer, nothing of K5c or
+    the f32 kernels; the step's losses those of the same step with the
+    attention written out, within the refine cell's ``loss_gap`` limit."""
+    from dynhor_tpu_torch.models import dino as TD
+
+    m = load_obj("assets/shoes/1229a2e6e97e_A_basketball_shoes_.obj")
+    mesh = TR.MeshArrays(TG.center_and_normalize_verts(torch.as_tensor(m.verts)),
+                         torch.as_tensor(m.faces).long(), torch.as_tensor(m.face_uvs),
+                         torch.as_tensor(m.texture))
+    dcfg = TD.DinoConfig()
+    params = TD.init_params(dcfg, torch.Generator().manual_seed(0))
+    for k in ("ls1", "ls2"):  # so that the blocks reach the tokens
+        params["blocks"][k] = torch.full_like(params["blocks"][k], 0.1)
+    gen = torch.Generator().manual_seed(4)
+    masks = torch.zeros((2, S, S))
+    masks[:, 30:100, 40:90] = 1.0
+    gt = torch.randn((2, dcfg.feat_size ** 2, dcfg.embed_dim), generator=gen)
+    K = torch.tensor([[S * 1.2, 0, S / 2], [0, S * 1.2, S / 2], [0, 0, 1.0]])
+    targets = TR.FrameTargets(masks, gt, K.expand(2, 3, 3).clone())
+    rot = TG.rotations_from_uniforms(torch.rand((3, 2), generator=gen)).transpose(1, 2)
+    trans = torch.tensor([[0.0, 0.0, 2.5], [0.05, -0.02, 2.6]])
+    cfg = TR.RefineConfig(num_iterations=1, crop_size=S, max_faces_per_tile=len(m.faces))
+
+    def step(dino_cfg):
+        return TR.refine_poses(mesh, targets, rot, trans, params, dino_cfg, cfg,
+                               device=cuda).final_loss.double().cpu()
+
+    fused = (kernels.flash_bwd_fused.launches, kernels.flash_bwd_fused_f32.launches)
+    before = _k5_launches()
+    loss = step(dcfg)
+    assert _k5_ran(before) == ([2 * dcfg.depth] + [dcfg.depth] * 3, [0] * 4)
+    assert (kernels.flash_bwd_fused.launches, kernels.flash_bwd_fused_f32.launches) == fused
+    before = _k5_launches()
+    ref = step(TD.DinoConfig(attn_impl="xla"))
+    assert _k5_ran(before) == ([0] * 4, [0] * 4)
+    assert bool(torch.isfinite(loss).all())
+    scale = torch.maximum(ref.abs(), ref.abs().median())
+    assert float(((loss - ref).abs() / scale).max()) <= 3.5e-3
 
 
 def test_silhouette_kernels_match_plain_versions(shoes):

@@ -59,15 +59,19 @@ def test_tokens_from_crop_and_input_gradient(pos_grid, attn_impl, fused_bwd):
 
 
 def test_config_takes_the_jax_packages_attention_knobs():
-    """The port's DinoConfig has the JAX one's fields and defaults but the TPU
-    tile sizes, ``splash_fused_bwd`` among them, builds from the same
-    keywords, refuses the tile sizes rather than ignore them, and rejects
-    what the JAX one rejects (an unknown ``attn_impl``)."""
+    """The port's DinoConfig has the JAX one's fields but the TPU tile sizes,
+    and its defaults, ``splash_fused_bwd`` among them, but ``attn_impl``:
+    "flash" (the hand-written kernel) in the port, "xla" in the JAX package.
+    It builds from the same keywords, refuses the tile sizes rather than
+    ignore them, and rejects what the JAX one rejects (an unknown
+    ``attn_impl``)."""
     tiles = ("flash_block", "splash_block")
     fields = [f.name for f in dataclasses.fields(JD.DinoConfig) if f.name not in tiles]
     assert [f.name for f in dataclasses.fields(TD.DinoConfig)] == fields
-    assert {n: getattr(TD.DinoConfig(), n) for n in fields} == {
-        n: getattr(JD.DinoConfig(), n) for n in fields}
+    others = [n for n in fields if n != "attn_impl"]
+    assert {n: getattr(TD.DinoConfig(), n) for n in others} == {
+        n: getattr(JD.DinoConfig(), n) for n in others}
+    assert (TD.DinoConfig().attn_impl, JD.DinoConfig().attn_impl) == ("flash", "xla")
     assert TD.DinoConfig().splash_fused_bwd is False
     for kw in (dict(attn_impl="splash", splash_fused_bwd=True),
                dict(attn_impl="flash", splash_fused_bwd=True)):

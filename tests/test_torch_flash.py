@@ -169,7 +169,8 @@ def test_forward_under_inference_mode():
 def test_attn_impl_names():
     for name in ("xla", "flash", "splash"):
         assert TD.DinoConfig(attn_impl=name).attn_impl == name
-    assert TD.DinoConfig().attn_impl == JD.DinoConfig().attn_impl == "xla"
+    assert TD.DinoConfig().attn_impl == "flash"  # the port's default: the kernel
+    assert JD.DinoConfig().attn_impl == "xla"
     with pytest.raises(ValueError, match="attn_impl must be"):
         TD.DinoConfig(attn_impl="flsh")
     assert not hasattr(TD.DinoConfig(), "flash_block")  # TPU tile knobs are not ported

@@ -50,6 +50,7 @@ raises before writing.
 """
 import copy
 import filecmp
+import functools
 import os
 import subprocess
 import sys
@@ -294,6 +295,12 @@ def test_track_sequence_multihyp_matches(box, monkeypatch, capsys, parallel):
     cfg = _mode_config(box["cfg"], "grid", parallel)
     cfg["system"]["num_initializations"] = 4
     cfg["system"]["hypotheses"]["tournament_iters"] = 4
+    # The JAX package's default attention, written out, on both sides: the
+    # port's default kernel keeps the scores in f32, which moves this
+    # near-tie tournament's poses past INIT_TOL (its plain version is held
+    # to the JAX package's attention in test_torch_flash.py).
+    monkeypatch.setattr(TPL.dino_mod, "config_for_model",
+                        functools.partial(TPL.dino_mod.config_for_model, attn_impl="xla"))
     grid = np.array(JP.prior_view_rotations(jax.random.PRNGKey(0), JP.PriorConfig(grid=tuple(GRID))))
     spies = {}
     if parallel:

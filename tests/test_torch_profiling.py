@@ -210,7 +210,8 @@ def test_refine_spans_and_identical_steps():
     _same(off, on)
     assert _names(rec) == {"refine.step": 2, "refine.render": 2, "refine.vit_fwd": 2,
                            "refine.backward": 2, "refine.vit_bwd": 2, "refine.adam": 2}
-    assert rec.counters == {"refine.frame_steps": 4}
+    # Depth 1: the attention kernel's forward and "frozen"'s recomputation a step.
+    assert rec.counters == {"refine.frame_steps": 4, "vit.attn_kernel": 4}
     by = {s.name: s for s in rec.spans}
     assert by["refine.vit_bwd"].parent is by["refine.backward"]
     assert by["refine.render"].parent is by["refine.step"] is by["refine.adam"].parent
@@ -251,12 +252,33 @@ def test_prior_two_stage_spans_and_identical_scores(monkeypatch):
     assert _names(rec) == {"prior.frame_features": 2, "prior.prescreen": 1, "prior.cap": 2,
                            "prior.rescore": 1, "prior.calibrate": 1, "prior.render": chunks,
                            "prior.crop": chunks, "prior.vit": chunks, "prior.score": chunks}
-    assert rec.counters == {"prior.views_prescreened": 24, "prior.views_rescored": union}
+    # Depth 1: one attention a ViT call, two for the frames' features.
+    assert rec.counters == {"prior.views_prescreened": 24, "prior.views_rescored": union,
+                            "vit.attn_kernel": 2 + chunks}
     by = {}
     for s in rec.spans:
         by.setdefault(s.name, []).append(s)
     assert by["prior.frame_features"][1].parent is by["prior.prescreen"][0]
     assert by["prior.render"][-1].parent is by["prior.rescore"][0]
+
+
+@pytest.mark.parametrize("attn_impl, counter", [(None, "vit.attn_kernel"),
+                                                ("xla", "vit.attn_written_out")])
+def test_vit_counts_its_attention_path(attn_impl, counter):
+    """A depth-2 ViT forward counts one attention a layer, under the path it
+    takes and under no other (the default is the kernel); a backward under
+    "frozen" runs the attention core again, and counts it again."""
+    kw = dict(_VIT, depth=2) if attn_impl is None else dict(_VIT, depth=2, attn_impl=attn_impl)
+    dcfg = TD.DinoConfig(**kw)
+    params = TD.init_params(dcfg, torch.Generator().manual_seed(0))
+    rgb = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(1), requires_grad=True)
+    with PF.recording() as rec:
+        tok = TD.forward_tokens_from_crop(params, rgb, dcfg, remat="frozen")
+    assert rec.counters == {counter: 2}
+    with PF.recording() as rec:
+        tok.sum().backward()
+    assert rec.counters == {counter: 2}
+    assert rgb.grad is not None
 
 
 def test_neus_step_spans_and_identical_steps():
