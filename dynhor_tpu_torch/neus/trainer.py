@@ -216,7 +216,8 @@ def loss_fn(field: NeuSField, bg: Tensor, key: Key, data: ReconData, corr: CorrD
 
     if nrm_gt is not None and tcfg.lw_normal > 0:
         n_cam = torch.einsum("nj,njk->nk", out.normal, data.R_rows[fr])
-        nrm_ref = nrm_gt * nrm_gt.new_tensor([1.0, -1.0, -1.0]) if tcfg.normal_flip_yz else nrm_gt
+        # (x, -y, -z): the product by (1, -1, -1), without copying it to the device
+        nrm_ref = torch.cat([nrm_gt[:, :1], -nrm_gt[:, 1:]], dim=-1) if tcfg.normal_flip_yz else nrm_gt
         # A large eps: |n_pred| -> 0 early in training (acc ~ 0).
         cos = torch.sum(safe_normalize(n_cam, eps=0.1) * safe_normalize(nrm_ref, eps=0.1), dim=-1)
         l_normal = ((1.0 - cos) * mask_gt).sum() / (mask_sum + 1e-6)

@@ -4,8 +4,9 @@
     python -m dynhor_tpu_torch.recon --config_path ... --device cpu
 
 Reads the config's ``system.recon`` block with ``recon.py``'s keys and
-defaults, trains the SDF field (positional-encoding NeuS or the hash grid
-per ``system.recon.encoder``) from the stage-1 pose npz files, checkpoints
+defaults, trains the SDF field (positional-encoding NeuS, the hash grid, or
+instant-nsr-pl's hash-grid field at its published widths, per
+``system.recon.encoder``: "pe", "hash", "ngp") from the stage-1 pose npz files, checkpoints
 to ``<exps_root>/<seq>/<exp>/recon/checkpoints/step_<N>.pt``, extracts a
 mesh with marching tetrahedra (the native library) to ``recon/mesh.obj``,
 and reports the Chamfer distance to ``gt_mesh`` when one is configured.
@@ -80,7 +81,7 @@ def main(argv: list[str] | None = None) -> ReconResult:
             " (python -m dynhor_tpu_torch.tools.bench_neus measures both)",
             flush=True,
         )
-    sdf_cfg = F.SDFConfig(encoder=encoder)
+    sdf_cfg = F.config_for(encoder)
     rcfg = R.RenderConfig(
         n_coarse=int(rc.get("n_coarse", 64)),
         n_importance=int(rc.get("n_importance", 64)),

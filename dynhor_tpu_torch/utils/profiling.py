@@ -38,6 +38,25 @@ offset to the Unix clock fixed when recording starts (the profiler's host
 events are on the Unix clock: ``kineto_results.trace_start_ns()`` plus an
 event's time range).  Counters are host integers; neither a span nor a
 counter reads the device.
+
+The program's spans and counters:
+
+- ``refine.step``, ``.render``, ``.backward``, ``.adam``, ``.vit_fwd`` and
+  ``.vit_bwd`` (the ViT's backward, ``span_between_grads``); counter
+  ``refine.frame_steps``;
+- ``prior.prescreen``, ``.rescore``, ``.frame_features``, ``.cap``,
+  ``.calibrate``, ``.render``, ``.crop``, ``.vit``, ``.score``; counters
+  ``prior.views_prescreened``, ``.views_rescored``, ``.cap_reruns``;
+- ``neus.step``, ``.field``, ``.backward``, ``.sample``, ``.update``,
+  ``.occupancy``; counter ``neus.rays``;
+- ``neus.encode`` (the "ngp" field's hash-grid encoding, a call) and
+  ``neus.encode_bwd`` (its backward on autograd's thread, from the
+  encoding's gradient to the last of the table's and the points', and its
+  double backward, from the gradient of the points' gradient to that of
+  the encoding's gradient);
+  counters ``neus.encoded_points`` (points a call) and ``neus.hash_lookups``
+  (points x levels x 8 corners);
+- counters ``vit.attn_kernel``, ``vit.attn_written_out``.
 """
 from __future__ import annotations
 
@@ -147,30 +166,70 @@ def active() -> bool:
     return _REC is not None
 
 
-def span_between_grads(name: str, first: torch.Tensor, last: torch.Tensor) -> None:
-    """A span of the backward pass from the gradient of ``first`` to that of
-    ``last`` (a module's output and its input: the module's backward).
-    Autograd runs it on its own thread; its parent is the span open, when
-    it starts, on the thread that registers it, which calls the backward.
-    Registers gradient hooks, which leave the gradients as they are, only
-    while the recorder is on."""
+def span_between_grads(name: str, first: torch.Tensor, *lasts: torch.Tensor) -> None:
+    """A span of the backward pass from the gradient of ``first`` to the
+    last gradient of ``lasts`` that the pass computes (a module's output
+    and its inputs: the module's backward), in each backward pass that
+    reaches them.  Where the pass builds a graph of its own
+    (``create_graph``), the backward of that backward gets a span of the
+    same name in the later pass that takes it: from the first gradient of
+    the inputs' gradients to that of the output's gradient (the module's
+    double backward).  Autograd runs them on its own thread; their parent is
+    the span open, when each starts, on the thread that registers them,
+    which calls the backward.  Registers gradient hooks, which leave the
+    gradients as they are, only while the recorder is on.  ``lasts`` are
+    not leaves: of a leaf, autograd cannot say whether ``torch.autograd.grad``
+    will reach it."""
     rec = _REC
-    if rec is None or not (first.requires_grad and last.requires_grad):
+    if rec is None or not first.requires_grad:
         return
-    owner = threading.get_ident()
-    opened: list[Span] = []
+    lasts = [t for t in lasts if t.requires_grad]
+    if lasts:
+        _between(name, rec, threading.get_ident(), [first], lasts)
+
+
+def _will_reach(t: torch.Tensor) -> bool:
+    """Whether the running backward pass computes the gradient of ``t``."""
+    try:
+        node = t.grad_fn or torch.autograd.graph.get_gradient_edge(t).node
+        return bool(torch._C._will_engine_execute_node(node))
+    except RuntimeError:  # a leaf in ``torch.autograd.grad``: counted as not reached
+        return False
+
+
+def _between(name: str, rec: Recording, owner: int, firsts: list, lasts: list) -> None:
+    """Hooks for ``span_between_grads``: a span opens at the first gradient
+    of ``firsts`` in a pass and closes at the last gradient of ``lasts``
+    that the pass computes."""
+    st = {"span": None, "left": 0, "out": None, "ins": [], "closed_in": None}
 
     def begin(grad):
+        if st["span"] is not None or st["closed_in"] == torch._C._current_graph_task_id():
+            return
+        left = sum(_will_reach(t) for t in lasts)
+        if left == 0:  # no input's gradient in this pass
+            return
         stack = _STACKS.get(owner)
-        s = Span(name, rec, stack[-1] if stack else None)
-        opened.append(s.__enter__())
+        st.update(left=left, out=grad, ins=[])
+        st["span"] = Span(name, rec, stack[-1] if stack else None).__enter__()
 
     def end(grad):
-        if opened:
-            opened.pop().__exit__(None, None, None)
+        if st["span"] is None:
+            return
+        st["ins"].append(grad)
+        st["left"] -= 1
+        if st["left"] > 0:
+            return
+        st["span"].__exit__(None, None, None)
+        out, ins = st["out"], [g for g in st["ins"] if g.requires_grad]
+        st.update(span=None, out=None, ins=[], closed_in=torch._C._current_graph_task_id())
+        if out.requires_grad and ins:
+            _between(name, rec, owner, ins, [out])
 
-    first.register_hook(begin)
-    last.register_hook(end)
+    for t in firsts:
+        t.register_hook(begin)
+    for t in lasts:
+        t.register_hook(end)
 
 
 @contextlib.contextmanager

@@ -118,6 +118,35 @@ def test_span_between_grads_links_across_threads():
     assert torch.equal(x.grad, g_on)
 
 
+def test_span_between_grads_waits_for_every_input_and_spans_the_double_backward():
+    """The span closes at the last input gradient that the pass computes
+    (only the points' in ``torch.autograd.grad`` over them, the weights'
+    and the points' in the full backward), and a pass that builds a graph
+    gives the later pass a span of its double backward, which ends before
+    the module's own backward starts."""
+    w = torch.randn(4, 3, requires_grad=True)
+    x = torch.randn(5, 3, requires_grad=True)
+    seen = []
+    with PF.recording() as rec:
+        a, b = x * 2.0, w.view_as(w)
+        a.register_hook(lambda g: seen.append(("a", time.perf_counter_ns() + rec.offset_ns)))
+        b.register_hook(lambda g: seen.append(("b", time.perf_counter_ns() + rec.offset_ns)))
+        y = torch.tanh(a @ b.T)
+        PF.span_between_grads("t.mod_bwd", y, b, a)
+        (gx,) = torch.autograd.grad(torch.sin(y).sum(), x, create_graph=True)
+        assert [n for n, _ in seen] == ["a"]
+        first = [s for s in rec.spans if s.name == "t.mod_bwd"]
+        assert len(first) == 1 and first[0].end_ns >= seen[0][1]
+        seen.clear()
+        (gx.pow(2).sum() + y.sum()).backward()
+    spans = sorted((s for s in rec.spans if s.name == "t.mod_bwd"), key=lambda s: s.start_ns)
+    assert len(spans) == 3 and all(s.end_ns is not None for s in spans)
+    double, own = spans[1], spans[2]
+    assert double.end_ns <= own.start_ns
+    assert sorted(n for n, _ in seen) == ["a", "b"]
+    assert own.end_ns >= max(t for _, t in seen)
+
+
 def test_stamps_on_the_profilers_clock():
     def work():
         with PF.recording() as rec:
